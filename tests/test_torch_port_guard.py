@@ -1,0 +1,43 @@
+"""The PyTorch port stands alone: importing it loads neither jax nor the JAX
+package, and no source file of the port imports either."""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "vcr_gaus_tpu_torch")
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import vcr_gaus_tpu_torch as P\n"
+        "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'vcr_gaus_tpu' or m.startswith('vcr_gaus_tpu.'))\n"
+        "print(len(list(pkgutil.walk_packages(P.__path__))), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sources_import_no_jax():
+    pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+vcr_gaus_tpu\b"
+                     r"|from\s+vcr_gaus_tpu(\.|\s))", re.M)
+    offenders = []
+    n_files = 0
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                n_files += 1
+                with open(os.path.join(root, name)) as f:
+                    if pat.search(f.read()):
+                        offenders.append(os.path.relpath(
+                            os.path.join(root, name), REPO))
+    assert n_files > 10
+    assert offenders == []
