@@ -39,7 +39,16 @@ CHANNELS = ["r", "g", "b", "nx", "ny", "nz", "depth", "depth2", "alpha"]
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-FLOPS_PER_PAIR = 25
+# FP32 operations of one (pixel, entry) pair in rasterize_fwd.cu's loop
+# body, counting each add, mul, compare, min, abs, divide and expf as one:
+# every pair: dx, dy (2), the power (7), the power test (1)
+# past the power test: expf, times the opacity, the alpha test (3)
+# a live pair: min, w (2), rgb and normal accumulations (12), semantic ones
+#   (2 per channel), w*d and depth, depth^2 accumulations (4), T *= 1-alpha
+#   (2); in intersection mode the depth ray . n (5), its clamp (2) and the
+#   divide (1)
+OPS_PAIR, OPS_POWER_PASS = 12, 3
+OPS_LIVE, OPS_LIVE_SEM, OPS_LIVE_INTERSECT = 20, 2, 8
 
 
 def emit(**row) -> None:
@@ -281,6 +290,44 @@ def profile_render(render_view, cams, top=10) -> dict:
                 top_kernels=[[k[:80], ms] for k, ms in kernels[:top]])
 
 
+def pair_census(feats, binn, batches, n_tx) -> list[int]:
+    """Counts of the (pixel, entry) pairs the kernel evaluates on one view:
+    all of them (every entry of each batch a tile composited, for all of
+    the tile's pixels), those past the power test, and the live ones."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import projection as PF
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.ops.rasterize_ref import ALPHA_EPS
+
+    dev = feats.device
+    pix = torch.arange(R.TILE * R.TILE, device=dev)
+    lane = torch.arange(R.BATCH, device=dev)
+    gid = binn.sorted_gid.to(torch.int64)
+    starts = binn.tile_starts.to(torch.int64)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    for k in range(int(batches.max())):
+        busy = torch.nonzero(batches > k).squeeze(1)
+        for g0 in range(0, busy.numel(), 128):
+            ids = busy[g0:g0 + 128]
+            pos = k * R.BATCH + lane[None]
+            valid = pos < binn.tile_counts[ids, None]
+            f = feats[gid[torch.where(valid, starts[ids, None] + pos, 0)]]
+            px = ((ids % n_tx) * R.TILE)[:, None] + pix[None] % R.TILE
+            py = ((ids // n_tx) * R.TILE)[:, None] + pix[None] // R.TILE
+            dx = px[:, :, None].float() - f[:, None, :, PF.F_MEAN_X]
+            dy = py[:, :, None].float() - f[:, None, :, PF.F_MEAN_Y]
+            power = (-0.5 * (f[:, None, :, PF.F_CONIC_A] * dx * dx
+                             + f[:, None, :, PF.F_CONIC_C] * dy * dy)
+                     - f[:, None, :, PF.F_CONIC_B] * dx * dy)
+            passed = (power <= 0.0) & valid[:, None, :]
+            live = passed & (f[:, None, :, PF.F_OPACITY] * torch.exp(power)
+                             >= ALPHA_EPS)
+            counts += torch.stack([valid.sum() * pix.numel(), passed.sum(),
+                                   live.sum()])
+    return counts.tolist()
+
+
 def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
                 n_views=8, n_check_tiles=64, timing_iters=20) -> dict:
     """Phase 3: the full-width render path through render_eval.main."""
@@ -289,6 +336,7 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
     from vcr_gaus_tpu_torch import render_eval
     from vcr_gaus_tpu_torch.data.scene import load_scene_info
     from vcr_gaus_tpu_torch.models.ply_io import load_gaussian_ply
+    from vcr_gaus_tpu_torch.ops import binning as B
     from vcr_gaus_tpu_torch.ops import rasterize as R
     from vcr_gaus_tpu_torch.render.renderer import RenderConfig, render
 
@@ -336,15 +384,14 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
                 and float(alpha.max()) <= 1.0):
             raise AssertionError("non-finite image or alpha outside [0, 1]")
 
-        n_tx = -(-w // 16)
+        n_tx, _ = B.tile_grid(w, h)
 
         def kernel():
             R.rasterize_forward(feats, binn, cam, w, h, ch_sem, mode)
 
         def plain():
             R.composite_tiles_torch(feats, binn.sorted_gid, binn.tile_starts,
-                                    binn.tile_counts, cam, n_tx, ch_sem, mode,
-                                    group=512)
+                                    binn.tile_counts, cam, n_tx, ch_sem, mode)
 
         kernel_ms = cuda_ms(kernel, iters=timing_iters)
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
@@ -357,18 +404,20 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
             n_tx, ch_sem, mode, tile_ids=ids)
         err = 0.0
         for k, t in enumerate(ids.tolist()):
-            y0, x0 = (t // n_tx) * 16, (t % n_tx) * 16
-            got = img[:, y0:y0 + 16, x0:x0 + 16]
-            want = tiles[k].reshape(-1, 16, 16)[:, :got.shape[1], :got.shape[2]]
+            y0, x0 = (t // n_tx) * R.TILE, (t % n_tx) * R.TILE
+            got = img[:, y0:y0 + R.TILE, x0:x0 + R.TILE]
+            want = tiles[k].reshape(-1, R.TILE, R.TILE)[:, :got.shape[1],
+                                                        :got.shape[2]]
             torch.testing.assert_close(got, want, **FWD)
             err = max(err, float((got - want).abs().max()))
         if not torch.equal(batches[ids.to(batches.device)], want_b):
             raise AssertionError("batches composited differ on the full view")
 
-        # the least time for the same work, from this run's data: the
-        # entries each tile composited before its stop, 256 pixels each;
-        # bytes: their gids, each gaussian's feature row read once, the
-        # tile ranges, and the image written once
+        # the least time for the same work, from this run's data: the pairs
+        # of the entries each tile composited before its stop, 256 pixels
+        # each, at the operations their outcome needs; bytes: their gids,
+        # each gaussian's feature row read once, the tile ranges, and the
+        # image written once
         counts = binn.tile_counts.to(torch.int64)
         tile_of = torch.repeat_interleave(torch.arange(counts.numel(),
                                                        device=device), counts)
@@ -377,7 +426,11 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
         used = pos < batches.to(torch.int64)[tile_of] * R.BATCH
         composited = int(used.sum())
         rows = int(torch.unique(binn.sorted_gid[used]).numel())
-        flop_s = composited * 256 * FLOPS_PER_PAIR / PEAK_FP32
+        pairs, power_pass, live = pair_census(feats, binn, batches, n_tx)
+        ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
+               + (OPS_LIVE + OPS_LIVE_SEM * ch_sem
+                  + OPS_LIVE_INTERSECT * (mode == "intersection")) * live)
+        flop_s = ops / PEAK_FP32
         nbytes = (4 * composited + 4 * feats.shape[1] * rows
                   + 8 * counts.numel() + h * w * 4 * (9 + ch_sem))
         byte_s = nbytes / PEAK_BYTES
@@ -409,6 +462,8 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
          launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
          render_ms_per_view=statistics.median(render_ms),
          render_ms_all=render_ms, composited_entries=composited,
+         pairs=pairs, pairs_past_power_test=power_pass, live_pairs=live,
+         bound_ops=ops,
          bound_ms=bound_ms, bound_flop_ms=1e3 * flop_s,
          bound_byte_ms=1e3 * byte_s, feature_rows_read=rows,
          tile_check_max_abs_err=err, library_ms=None)

@@ -29,11 +29,14 @@
 //     composited per tile goes to a small int32 side output, the counterpart
 //     of the TPU kernel's hidden k_done channel, for the backward.
 //
-// What bounds it on the card: the pair evaluations, about 25 FP32 flops each
-// (one expf, the quadratic form, the accumulations), times the composited
-// entries x 256 pixels, over the 67 TFLOP/s FP32 rate; the bytes are only the
-// gid plus 4 (14+S) feature bytes per composited entry and 4 (9+S) output
-// bytes per pixel, so at rendering shapes the kernel is bound by operations.
+// What bounds it on the card: the pair evaluations, for the composited
+// entries x 256 pixels, over the 67 TFLOP/s FP32 rate. Counting each add,
+// mul, compare, min, abs, divide and expf as one operation, a pair costs 12
+// up to the power test, 15 up to the alpha test, and 35 + 2 S if it is live
+// (43 + 2 S in intersection mode); chip_smoke.py counts the pairs of each
+// kind on a full-width view. The bytes are only the gid plus 4 (14+S)
+// feature bytes per composited entry and 4 (9+S) output bytes per pixel, so
+// at rendering shapes the kernel is bound by operations.
 // This first version keeps the arithmetic plain (no wgmma, TMA or warp
 // specialization) and is compiled with --fmad=false, so that its liveness
 // tests round exactly as the plain PyTorch version's do: a test flipped near

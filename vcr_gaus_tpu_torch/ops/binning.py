@@ -24,16 +24,14 @@ class Binning(NamedTuple):
     tile_counts: torch.Tensor    # (T,) int32 entries of each tile
     num_entries: int             # E
     overflow: bool               # always False: the port has no budget
-    gauss_offsets: torch.Tensor  # (N,) int32 exclusive entry-count cumsum
-    gauss_counts: torch.Tensor   # (N,) int32 entries per gaussian
 
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def tile_grid(width: int, height: int, tile: int = TILE) -> tuple[int, int]:
-    return cdiv(width, tile), cdiv(height, tile)
+def tile_grid(width: int, height: int) -> tuple[int, int]:
+    return cdiv(width, TILE), cdiv(height, TILE)
 
 
 def depth_key_bits(num_tiles: int) -> int:
@@ -43,13 +41,12 @@ def depth_key_bits(num_tiles: int) -> int:
 
 def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
                   depth_z: torch.Tensor, width: int, height: int,
-                  extents: torch.Tensor | None = None,
-                  tile: int = TILE) -> Binning:
+                  extents: torch.Tensor | None = None) -> Binning:
     """Bin gaussians to tiles. ``extents`` (N,2) are per-axis pixel extents;
     without them the circular ``radius`` is used on both axes."""
     dev = mean2d.device
     n = mean2d.shape[0]
-    n_tx, n_ty = tile_grid(width, height, tile)
+    n_tx, n_ty = tile_grid(width, height)
     num_tiles = n_tx * n_ty
     db = depth_key_bits(num_tiles)
 
@@ -64,10 +61,10 @@ def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
 
     # CUDA getRect semantics: min inclusive, max exclusive; the float ->
     # int conversion truncates toward zero as in the JAX package
-    x0 = ((mean2d[:, 0] - rx) / tile).to(torch.int32).clamp(0, n_tx)
-    y0 = ((mean2d[:, 1] - ry) / tile).to(torch.int32).clamp(0, n_ty)
-    x1 = ((mean2d[:, 0] + rx + tile - 1) / tile).to(torch.int32).clamp(0, n_tx)
-    y1 = ((mean2d[:, 1] + ry + tile - 1) / tile).to(torch.int32).clamp(0, n_ty)
+    x0 = ((mean2d[:, 0] - rx) / TILE).to(torch.int32).clamp(0, n_tx)
+    y0 = ((mean2d[:, 1] - ry) / TILE).to(torch.int32).clamp(0, n_ty)
+    x1 = ((mean2d[:, 0] + rx + TILE - 1) / TILE).to(torch.int32).clamp(0, n_tx)
+    y1 = ((mean2d[:, 1] + ry + TILE - 1) / TILE).to(torch.int32).clamp(0, n_ty)
     span_w = (x1 - x0).clamp_min(0)
     span_h = (y1 - y0).clamp_min(0)
     count = torch.where(alive, span_w * span_h, 0).to(torch.int64)
@@ -96,6 +93,4 @@ def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
         tile_starts=tile_starts.to(torch.int32),
         tile_counts=tile_counts.to(torch.int32),
         num_entries=int(e),
-        overflow=False,
-        gauss_offsets=offsets.to(torch.int32),
-        gauss_counts=count.to(torch.int32))
+        overflow=False)
