@@ -4,18 +4,30 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure exits non-zero:
-  1. build   every CUDA kernel of the render path from csrc/ (nvcc, sm_90a),
-             and print the card's name and power limit;
+  1. build   every CUDA kernel from csrc/ (one nvcc per source, all started
+             together, sm_90a), and print the card's name and power limit;
   2. kernel  each kernel's wrapper against its plain PyTorch version on the
-             card at small shapes (both depth modes, 0 and 3 semantic
+             card at small shapes (both depth modes, 0, 2 and 3 semantic
              channels, a ragged 40x24 image, an all-culled scene, a
-             saturated scene where the early stop fires), atol 2e-4 and
-             rtol 1e-3 on every channel;
+             saturated scene where the early stop fires): the forward
+             kernel at atol 2e-4 and rtol 1e-3 on every channel, the
+             backward kernel's per-Gaussian gradients, each column group
+             (mean, conic, opacity, depth, plane, normal, rgb, sem,
+             |d mean2d|) at atol 2e-3 times its own max|g| and rtol 2e-3
+             (5e-2 in the saturated scene);
   3. slice   the render path at full width: a synthetic COLMAP scene of 8
              1600x1200 views and a 1M-Gaussian SH-degree-3 PLY, rendered and
              scored by vcr_gaus_tpu_torch.render_eval.main; the launch counts
              of that run, kernel and render times, the kernel held against
              its plain version on 64 random tiles of one full-width view;
+  4. train   the training path at full width: a 1M-point COLMAP scene of 8
+             1600x1200 views with unit-normal priors, trained for 20
+             iterations of configs/dtu/base.yaml through
+             vcr_gaus_tpu_torch.train's main; the launch counts and losses
+             of that run; then, on the trained state with 4x scales and every
+             loss gate open, the step time, a torch.profiler stage table,
+             the backward kernel's time, bound and plain time, and the
+             kernel held against its plain version on one full-width step;
 then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of vcr_gaus_tpu.
 """
@@ -49,6 +61,22 @@ PEAK_BYTES = 3.35e12
 #   divide (1)
 OPS_PAIR, OPS_POWER_PASS = 12, 3
 OPS_LIVE, OPS_LIVE_SEM, OPS_LIVE_INTERSECT = 20, 2, 8
+# the same count for rasterize_bwd.cu's loop body: every pair and the tests
+# as in the forward; a live pair: min, w (2), s over the composited columns
+# (12 + 2 per semantic channel) and its depth term (4), the prefix and
+# suffix (3), dL/dalpha (5), the cap test and dpower (2), the mean terms
+# (8), the conic terms (9), the opacity term (2), the depth term (4), the
+# composited-column terms (12 + 2 per channel), the two |.| terms (2),
+# T *= 1-alpha (2), and one add per gradient channel (16 + S) for the sum
+# over the tile's pixels; in intersection mode the depth ray . n, its clamp
+# and divide (8) and the plane-offset and normal terms (10)
+OPS_BWD_LIVE, OPS_BWD_LIVE_SEM, OPS_BWD_LIVE_INTERSECT = 83, 5, 18
+BWD = dict(rtol=2e-3)              # and atol 2e-3 max|g| per column group
+BWD_SATURATED = dict(rtol=5e-2)    # tests/test_rasterize.py:432
+# bench.py's dtu_full weights: the DTU recipe with every gate open
+DTU_FULL_WEIGHTS = {"l1": 0.8, "ssim": 0.2, "mono_normal": 0.01,
+                    "l1_scale": 0.5, "consistent_normal": 0.05,
+                    "distortion": 1000.0}
 
 
 def emit(**row) -> None:
@@ -136,52 +164,127 @@ def compare_kernel(feats, radius, cam, width, height, ch_sem, depth_mode,
     return dict(zip(names, err)), batches, held
 
 
-def phase_kernel(device) -> float:
-    """Phase 2; returns the largest error seen."""
+def grad_groups(ch_sem) -> dict[str, slice]:
+    """Column groups of the backward kernel's (N, 16+S) gradient: the packed
+    feature layout, then the |d mean2d| stream."""
+    from vcr_gaus_tpu_torch.ops import projection as PF
+    f = PF.feature_dim(ch_sem)
+    return {"mean": slice(PF.F_MEAN_X, PF.F_CONIC_A),
+            "conic": slice(PF.F_CONIC_A, PF.F_OPACITY),
+            "opacity": slice(PF.F_OPACITY, PF.F_DEPTH_Z),
+            "depth_z": slice(PF.F_DEPTH_Z, PF.F_PLANE_D),
+            "plane_d": slice(PF.F_PLANE_D, PF.F_NORMAL),
+            "normal": slice(PF.F_NORMAL, PF.F_RGB),
+            "rgb": slice(PF.F_RGB, PF.F_SEM), "sem": slice(PF.F_SEM, f),
+            "abs_dmean2d": slice(f, f + 2)}
+
+
+def assert_grads_close(got, want, ch_sem, rtol) -> dict[str, list[float]]:
+    """Per-Gaussian gradients, each column group at atol 2e-3 times its own
+    max|want| and ``rtol``: the groups differ by orders of magnitude (a
+    clamped plane denominator makes the plane and normal columns huge), so
+    one scale for all would let the small groups through unchecked. Returns
+    {group: [largest absolute error, max|want|]}."""
+    import torch
+    groups = grad_groups(ch_sem)
+    if got.shape != want.shape or want.shape[1] != groups["abs_dmean2d"].stop:
+        raise AssertionError(f"gradient shapes {tuple(got.shape)}, "
+                             f"{tuple(want.shape)}, ch_sem {ch_sem}")
+    out = {}
+    for name, cols in groups.items():
+        g, w = got[:, cols], want[:, cols]
+        if w.numel() == 0:
+            continue
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, atol=2e-3 * scale, rtol=rtol,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+        out[name] = [float((g - w).abs().max()), scale]
+    return out
+
+
+def compare_backward(feats, radius, cam, width, height, ch_sem, depth_mode,
+                     device, tol=BWD, seed=0) -> dict[str, list[float]]:
+    """Backward kernel wrapper vs its plain version on the forward kernel's
+    image and batch counts and a seeded random image gradient; returns
+    assert_grads_close's per-group errors and scales."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+
+    f = torch.tensor(feats, device=device)
+    cam_t = torch.tensor(cam, device=device)
+    binn = B.bin_gaussians(f[:, :2], torch.tensor(radius, device=device),
+                           f[:, 6], width, height)
+    img, batches = R.rasterize_forward(f, binn, cam_t, width, height, ch_sem,
+                                       depth_mode)
+    g = torch.randn(img.shape, generator=torch.Generator().manual_seed(seed)
+                    ).to(device)
+    got = R.rasterize_backward(f, binn, cam_t, img, g, batches, width, height,
+                               ch_sem, depth_mode)
+    want = R.composite_tiles_backward_torch(
+        f, binn.sorted_gid, binn.tile_starts, binn.tile_counts, batches,
+        cam_t, img, g, ch_sem, depth_mode)
+    return assert_grads_close(got, want, ch_sem, tol["rtol"])
+
+
+def worst_error(groups) -> float:
+    return max((err for err, _ in groups.values()), default=0.0)
+
+
+def phase_kernel(device) -> tuple[float, float]:
+    """Phase 2; returns the largest forward and backward errors seen."""
     cases = [("traditional", 0, 40, 24, splat_scene(seed=0)),
              ("intersection", 0, 40, 24, splat_scene(seed=1)),
+             ("traditional", 2, 40, 24, splat_scene(seed=6, ch_sem=2)),
+             ("intersection", 2, 40, 24, splat_scene(seed=7, ch_sem=2)),
              ("traditional", 3, 40, 24, splat_scene(seed=2, ch_sem=3)),
              ("intersection", 3, 40, 24, splat_scene(seed=3, ch_sem=3)),
              ("intersection", 3, 200, 150,
               splat_scene(n=3000, seed=4, ch_sem=3, width=200, height=150))]
-    worst = 0.0
+    worst = worst_bwd = 0.0
     for mode, ch_sem, w, h, (feats, radius, cam) in cases:
         err, _, _ = compare_kernel(feats, radius, cam, w, h, ch_sem, mode,
                                    device)
+        bwd = compare_backward(feats, radius, cam, w, h, ch_sem, mode, device)
         worst = max(worst, *err.values())
+        worst_bwd = max(worst_bwd, worst_error(bwd))
         emit(phase="kernel", case=f"{mode}_sem{ch_sem}_{w}x{h}",
-             max_abs_err=err)
+             max_abs_err=err, bwd_err_and_max_grad=bwd)
     feats, radius, cam = splat_scene(seed=5)
     err, _, _ = compare_kernel(feats, radius * 0, cam, 40, 24, 0,
                                "traditional", device)
+    bwd = compare_backward(feats, radius * 0, cam, 40, 24, 0, "traditional",
+                           device)
     worst = max(worst, *err.values())
-    emit(phase="kernel", case="all_culled_40x24", max_abs_err=err)
+    worst_bwd = max(worst_bwd, worst_error(bwd))
+    emit(phase="kernel", case="all_culled_40x24", max_abs_err=err,
+         bwd_err_and_max_grad=bwd)
     feats, radius, cam = saturated_scene()
     err, batches, held = compare_kernel(feats, radius, cam, 40, 24, 0,
                                         "traditional", device)
     if not bool((batches < held).any()):
         raise AssertionError("the early stop did not fire")
+    bwd = compare_backward(feats, radius, cam, 40, 24, 0, "traditional",
+                           device, tol=BWD_SATURATED)
     worst = max(worst, *err.values())
+    worst_bwd = max(worst_bwd, worst_error(bwd))
     emit(phase="kernel", case="saturated_40x24", max_abs_err=err,
-         batches_done=batches.tolist(), batches_held=held.tolist())
-    return worst
+         bwd_err_and_max_grad=bwd,
+         batches_done=batches.tolist(),
+         batches_held=held.tolist())
+    return worst, worst_bwd
 
 
-def write_scene(root, n_gauss, width, height, n_views, seed=0):
-    """A COLMAP scene of ``n_views`` ring cameras (bench.py's poses: identity
-    rotation, centers on a 0.3 ring) looking at a sphere shell of radius
-    1.5 at z = 4, and a config + PLY of ``n_gauss`` SH-degree-3 gaussians on
-    that shell, each of isotropic scale 4x the mean point spacing."""
-    import yaml
+def write_colmap_views(scene, width, height, n_views, image_fn):
+    """COLMAP cameras of ``n_views`` ring views (bench.py's poses: identity
+    rotation, centers on a 0.3 ring, fovx 0.9, fovy 0.7) under ``scene``,
+    each with the (H, W, 3) uint8 image ``image_fn(i)``."""
     from PIL import Image
 
-    from vcr_gaus_tpu_torch.models.convert import state_from_numpy
-    from vcr_gaus_tpu_torch.models.ply_io import save_gaussian_ply
     from vcr_gaus_tpu_torch.utils import colmap as CM
     from vcr_gaus_tpu_torch.utils import graphics as G
 
-    rng = np.random.default_rng(seed)
-    scene = os.path.join(root, "scene")
     os.makedirs(os.path.join(scene, "sparse", "0"))
     os.makedirs(os.path.join(scene, "images"))
     fovx, fovy = 0.9, 0.7
@@ -194,20 +297,41 @@ def write_scene(root, n_gauss, width, height, n_views, seed=0):
     for i in range(n_views):
         ang = 2 * np.pi * i / n_views
         name = f"view_{i:03d}.png"
-        img = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
-        Image.fromarray(img).save(os.path.join(scene, "images", name))
+        Image.fromarray(image_fn(i)).save(os.path.join(scene, "images", name))
         images[i + 1] = CM.ColmapImage(
             i + 1, np.array([1.0, 0.0, 0.0, 0.0]),
             np.array([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.0]), 1, name)
     CM.write_images_binary(images, os.path.join(scene, "sparse", "0",
                                                 "images.bin"))
 
-    theta = rng.uniform(0, 2 * np.pi, n_gauss)
-    z = rng.uniform(-1, 1, n_gauss)
+
+def sphere_shell(rng, n):
+    """bench.py's population: n points on a sphere shell of radius 1.5 at
+    z = 4 and their random colors."""
+    theta = rng.uniform(0, 2 * np.pi, n)
+    z = rng.uniform(-1, 1, n)
     r = np.sqrt(1 - z ** 2)
     pts = (np.stack([r * np.cos(theta), r * np.sin(theta), z], 1) * 1.5
            + np.array([0, 0, 4.0])).astype(np.float32)
-    cols = rng.uniform(0, 1, (n_gauss, 3)).astype(np.float32)
+    return pts, rng.uniform(0, 1, (n, 3)).astype(np.float32)
+
+
+def write_scene(root, n_gauss, width, height, n_views, seed=0):
+    """A COLMAP scene of ``n_views`` ring cameras with random images looking
+    at a sphere shell, and a config + PLY of ``n_gauss`` SH-degree-3
+    gaussians on that shell, each of isotropic scale 4x the mean point
+    spacing."""
+    import yaml
+
+    from vcr_gaus_tpu_torch.models.convert import state_from_numpy
+    from vcr_gaus_tpu_torch.models.ply_io import save_gaussian_ply
+    from vcr_gaus_tpu_torch.utils import colmap as CM
+
+    rng = np.random.default_rng(seed)
+    scene = os.path.join(root, "scene")
+    write_colmap_views(scene, width, height, n_views, lambda i: rng.integers(
+        0, 256, (height, width, 3), dtype=np.uint8))
+    pts, cols = sphere_shell(rng, n_gauss)
     sub = rng.choice(n_gauss, min(n_gauss, 2000), replace=False)
     CM.write_points3d_binary(pts[sub], cols[sub] * 255,
                              os.path.join(scene, "sparse", "0", "points3D.bin"))
@@ -255,12 +379,17 @@ def cuda_ms(fn, warmup=3, iters=20) -> float:
     return statistics.median(times)
 
 
-def profile_render(render_view, cams, top=10) -> dict:
-    """torch.profiler over one render of each camera: device ms per view of
-    each render stage (the record_function spans of the render path) and of
-    the largest kernels, and the device's busy share of the window's wall
-    time (profiling overhead included, so the idle share it implies is an
-    upper bound)."""
+def profile_render(render_view, cams, top=10, spans=("render.",)) -> dict:
+    """torch.profiler over one call of ``render_view`` per camera: device ms
+    per call of each stage and of the largest kernels, and the device's busy
+    share of the window's wall time (profiling overhead included, so the
+    idle share it implies is an upper bound). A stage is a record_function
+    span whose name starts with one of ``spans``, and its time is that of
+    the kernels launched inside it; "autograd" is that of the kernels the
+    autograd engine's nodes launch (the whole backward, the backward
+    kernel's own span included)."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -273,21 +402,48 @@ def profile_render(render_view, cams, top=10) -> dict:
             render_view(arr)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
     n = len(cams)
-    stages = {e.key: e.device_time_total / 1e3 / n for e in events
-              if e.key.startswith("render.")}
+    # the span's own device-side range would also count the queued work of
+    # earlier stages that runs while it is open: sum its kernels instead
+    stages = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name.startswith(spans):
+            stages[e.name] += e.device_time_total / 1e3 / n
+        elif e.name.startswith("autograd::engine::evaluate_function"):
+            stages["autograd"] += e.device_time_total / 1e3 / n
+    events = prof.key_averages()
     # the spans also appear as device-side ranges: keep kernels only
     kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n)
                       for e in events if e.device_type == DeviceType.CUDA
-                      and e.key not in stages),
+                      and not e.key.startswith(spans)),
                      key=lambda kv: -kv[1])
     busy_ms = sum(ms for _, ms in kernels)
     return dict(views=n, wall_ms_per_view=wall_ms / n,
                 device_ms_per_view=busy_ms,
                 device_busy_share=busy_ms * n / wall_ms,
-                stage_device_ms=stages,
+                stage_device_ms=dict(stages),
+                port_kernel_ms={k[:80]: ms for k, ms in kernels
+                                if "rasterize_" in k},
                 top_kernels=[[k[:80], ms] for k, ms in kernels[:top]])
+
+
+def composited_census(binn, batches) -> tuple[int, int]:
+    """(entries the kernel walks: those of each tile's composited batches,
+    distinct Gaussians among them) on one view."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+
+    counts = binn.tile_counts.to(torch.int64)
+    dev = counts.device
+    tile_of = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                      counts)
+    pos = (torch.arange(tile_of.numel(), device=dev)
+           - binn.tile_starts.to(torch.int64)[tile_of])
+    used = pos < batches.to(torch.int64)[tile_of] * R.BATCH
+    return int(used.sum()), int(torch.unique(binn.sorted_gid[used]).numel())
 
 
 def pair_census(feats, binn, batches, n_tx) -> list[int]:
@@ -418,21 +574,14 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
         # each, at the operations their outcome needs; bytes: their gids,
         # each gaussian's feature row read once, the tile ranges, and the
         # image written once
-        counts = binn.tile_counts.to(torch.int64)
-        tile_of = torch.repeat_interleave(torch.arange(counts.numel(),
-                                                       device=device), counts)
-        pos = (torch.arange(tile_of.numel(), device=device)
-               - binn.tile_starts.to(torch.int64)[tile_of])
-        used = pos < batches.to(torch.int64)[tile_of] * R.BATCH
-        composited = int(used.sum())
-        rows = int(torch.unique(binn.sorted_gid[used]).numel())
+        composited, rows = composited_census(binn, batches)
         pairs, power_pass, live = pair_census(feats, binn, batches, n_tx)
         ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
                + (OPS_LIVE + OPS_LIVE_SEM * ch_sem
                   + OPS_LIVE_INTERSECT * (mode == "intersection")) * live)
         flop_s = ops / PEAK_FP32
         nbytes = (4 * composited + 4 * feats.shape[1] * rows
-                  + 8 * counts.numel() + h * w * 4 * (9 + ch_sem))
+                  + 8 * binn.tile_counts.numel() + h * w * 4 * (9 + ch_sem))
         byte_s = nbytes / PEAK_BYTES
         bound_ms = 1e3 * max(flop_s, byte_s)
 
@@ -474,6 +623,228 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
                 max_abs_err=err)
 
 
+def write_train_scene(root, n_gauss, width, height, n_views, seed=0):
+    """A COLMAP scene for training: ``n_views`` ring views of a smooth gray
+    pattern, a unit-normal prior per view as float16 .npz in the DTU
+    recipe's ``normal_npz_indoor`` folder, ``n_gauss`` points on bench.py's
+    sphere shell as the init cloud (points3D.ply) and meta.json holding the
+    box bench.py's cloud implies. Returns the scene directory."""
+    from vcr_gaus_tpu_torch.data.scene import bound_by_points
+    from vcr_gaus_tpu_torch.utils.ply import write_points_ply
+
+    rng = np.random.default_rng(seed)
+    scene = os.path.join(root, "scene")
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    pattern = np.stack([0.5 + 0.2 * np.sin(xx / 230.0 + c) * np.cos(yy / 170.0)
+                        for c in range(3)], -1)
+    gt = (255 * pattern).astype(np.uint8)
+    write_colmap_views(scene, width, height, n_views, lambda i: gt)
+    nrm_dir = os.path.join(scene, "normal_npz_indoor")
+    os.makedirs(nrm_dir)
+    for i in range(n_views):
+        nrm = rng.normal(size=(3, height, width)).astype(np.float32)
+        nrm /= np.linalg.norm(nrm, axis=0, keepdims=True)
+        np.savez(os.path.join(nrm_dir, f"view_{i:03d}.npz"),
+                 nrm.astype(np.float16))
+    pts, cols = sphere_shell(rng, n_gauss)
+    write_points_ply(os.path.join(scene, "sparse", "0", "points3D.ply"), pts,
+                     cols * 255)
+    trans, scale = bound_by_points(pts)
+    with open(os.path.join(scene, "meta.json"), "w") as f:
+        json.dump({"trans": trans.tolist(), "scale": scale.tolist()}, f)
+    return scene
+
+
+def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
+                n_views=8, iters=20, timed_steps=10, profiled_steps=3,
+                scale_mult=4.0) -> dict:
+    """Phase 4: the training path at full width through the train CLI, then
+    the timed step, the profile and the backward kernel's numbers."""
+    import dataclasses
+
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.train import trainer as T
+    from vcr_gaus_tpu_torch.train.__main__ import main as train_main
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        scene = write_train_scene(root, n_gauss, width, height, n_views)
+        setup_s = time.perf_counter() - t0
+        logdir = os.path.join(root, "run")
+
+        R.reset_launch_counts()
+        t0 = time.perf_counter()
+        # 20 iterations of the DTU recipe; a run this short has no prune,
+        # whose final importance dump needs the stats kernel of slice C
+        trainer = train_main([
+            "--config", os.path.join(REPO, "configs", "dtu", "base.yaml"),
+            "--device", str(device), f"--logdir={logdir}",
+            f"--model.source_path={scene}", f"--optim.iterations={iters}",
+            "--optim.prune.iterations=[]", f"--tpu.capacity={1 << 20}"])
+        train_s = time.perf_counter() - t0
+        launches = dict(R.LAUNCHES)
+        # one forward and one backward launch per step, and one forward per
+        # view in each of the two final sweeps (the last iteration's test
+        # sweep and the CLI's evaluation)
+        want = {"rasterize_fwd": iters + 2 * n_views, "rasterize_bwd": iters}
+        if launches != want:
+            raise AssertionError(f"launches {launches}, expected {want}")
+        hist = trainer.history
+        l1 = [h["l1"] for h in hist]
+        if len(hist) != iters or not all(
+                math.isfinite(v) for h in hist for k, v in h.items()
+                if isinstance(v, float)):
+            raise AssertionError(f"training history: {hist}")
+        if statistics.mean(l1[-5:]) > statistics.mean(l1[:5]):
+            raise AssertionError(f"l1 rose over the run: {l1}")
+        ply = os.path.join(logdir, "point_cloud", f"iteration_{iters}",
+                           "point_cloud.ply")
+        if not os.path.exists(ply):
+            raise AssertionError("no PLY saved")
+        emit(phase="train", gaussians=trainer.state.num_active,
+             capacity=trainer.state.capacity, width=width, height=height,
+             views=n_views, iterations=iters, setup_s=setup_s,
+             train_main_s=train_s, launches=launches,
+             losses=[{k: v for k, v in h.items() if k != "n_active"}
+                     for h in hist])
+
+        # the timed step: the trained state with bench.py's 4x scales, its
+        # dtu_full weights, every gate open, SH degree 3; each step uploads
+        # its view's image and normal prior, as Trainer.train_step does
+        st = trainer.state
+        state = st.replace(params=dataclasses.replace(
+            st.params, log_scale=st.params.log_scale + math.log(scale_mult)))
+        step = T.make_train_step(trainer.cfg, trainer.rcfg, DTU_FULL_WEIGHTS,
+                                 trainer.extent, trainer.trans, trainer.scale)
+        gates = T.Gates(*(True,) * len(T.Gates._fields))
+        views = trainer.scene.train_cameras
+        staged = [c.arrays(device) for c in views]
+        bg = torch.zeros(3, device=device)
+        lr = trainer._lr_xyz(iters)
+
+        def one(i, st, cams=None):
+            cam = (views[i % n_views].arrays(device) if cams is None
+                   else cams[i % n_views])
+            return step(st, cam, bg, lr, 3, gates)
+
+        for i in range(2):
+            state, _, _ = one(i, state)
+        torch.cuda.synchronize()
+        R.reset_launch_counts()
+        state, _, aux = one(2, state)
+        torch.cuda.synchronize()
+        per_step = dict(R.LAUNCHES)
+        if per_step != {"rasterize_fwd": 1, "rasterize_bwd": 1}:
+            raise AssertionError(f"launches per step {per_step}")
+        step_ms, step_losses = [], []
+        for i in range(timed_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses, aux = one(3 + i, state)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            step_losses.append({k: float(v) for k, v in losses.items()})
+        # the same steps with every view already on the card: the difference
+        # is the per-step upload of the image and the normal prior
+        staged_ms = []
+        for i in range(timed_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _, _ = one(3 + i, state, staged)
+            torch.cuda.synchronize()
+            staged_ms.append(1e3 * (time.perf_counter() - t0))
+        if not all(math.isfinite(v) for ls in step_losses for v in ls.values()):
+            raise AssertionError(f"non-finite losses: {step_losses}")
+        box = [state]
+
+        def profiled(i):
+            box[0], _, _ = one(i, box[0])
+
+        profile = profile_render(profiled, list(range(profiled_steps)),
+                                 spans=("render.", "train."))
+        state = box[0]
+        st_ms = profile["stage_device_ms"]
+        # the profiler files the backward kernel's launch (ctypes, on the
+        # autograd engine's thread) under the engine's node, not under the
+        # span opened inside it, so it is taken by name; the rest of
+        # "autograd" is the backward of projection, SH, post-processing and
+        # the losses
+        k2_ms = sum(ms for k, ms in profile["port_kernel_ms"].items()
+                    if "rasterize_bwd" in k)
+        profile["backward_kernel_device_ms"] = k2_ms
+        profile["backward_other_device_ms"] = (
+            st_ms.get("autograd", 0.0) - k2_ms
+            - st_ms.get("render.composite_backward", 0.0))
+
+        # the backward kernel on one full-width step's inputs
+        captured = []
+        wrapped = R.rasterize_backward
+
+        def spy(*args, **kw):
+            captured.append((args, kw))
+            return wrapped(*args, **kw)
+
+        R.rasterize_backward = spy
+        try:
+            state, _, aux = one(3 + timed_steps, state)
+        finally:
+            R.rasterize_backward = wrapped
+        # detached: the saved features still require grad, and the plain
+        # version would record a graph through its batches
+        args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                     for a in captured[0][0])
+        feats, binn, cam, img, g_img, batches, w, h, ch_sem, mode = args
+
+        def kernel():
+            return R.rasterize_backward(*args)
+
+        def plain():
+            return R.composite_tiles_backward_torch(
+                feats, binn.sorted_gid, binn.tile_starts, binn.tile_counts,
+                batches, cam, img, g_img, ch_sem, mode)
+
+        kernel_ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, warmup=1, iters=2)
+        groups = assert_grads_close(kernel(), plain(), ch_sem, BWD["rtol"])
+
+        n_tx, _ = B.tile_grid(w, h)
+        composited, rows = composited_census(binn, batches)
+        pairs, power_pass, live = pair_census(feats, binn, batches, n_tx)
+        ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
+               + (OPS_BWD_LIVE + OPS_BWD_LIVE_SEM * ch_sem
+                  + OPS_BWD_LIVE_INTERSECT * (mode == "intersection")) * live)
+        flop_s = ops / PEAK_FP32
+        # gids and feature rows read once, the image and its gradient read
+        # once, the (N, 16+S) gradient written once
+        nbytes = (4 * composited + 4 * feats.shape[1] * rows
+                  + 8 * binn.tile_counts.numel() + 2 * h * w * 4 * (9 + ch_sem)
+                  + 4 * feats.shape[0] * (feats.shape[1] + 2))
+        byte_s = nbytes / PEAK_BYTES
+        bound_ms = 1e3 * max(flop_s, byte_s)
+
+    emit(phase="train_step", gaussians=state.num_active, width=width,
+         height=height, scale_mult=scale_mult, weights=DTU_FULL_WEIGHTS,
+         step_ms=statistics.median(step_ms), step_ms_all=step_ms,
+         step_ms_views_on_card=statistics.median(staged_ms),
+         step_losses=step_losses, launches_per_step=per_step,
+         entries=aux["num_entries"], composited_entries=composited,
+         pairs=pairs, pairs_past_power_test=power_pass, live_pairs=live,
+         bwd_kernel_ms=kernel_ms, bwd_plain_ms=plain_ms, bwd_bound_ops=ops,
+         bwd_bound_ms=bound_ms, bwd_bound_flop_ms=1e3 * flop_s,
+         bwd_bound_byte_ms=1e3 * byte_s, feature_rows_read=rows,
+         bwd_full_width_err_and_max_grad=groups,
+         library_ms=None)
+    emit(phase="train_profile", **profile)
+    return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="operations" if flop_s >= byte_s else "bytes",
+                max_abs_err=worst_error(groups))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -500,19 +871,30 @@ def main() -> int:
          ptxas={k: [ln for ln in v.splitlines() if "Used" in ln or "spill" in ln]
                 for k, v in reports.items()})
 
-    worst = phase_kernel(device)
+    worst, worst_bwd = phase_kernel(device)
     sl = phase_slice(device)
     if sl["launches"] != 8:
         raise AssertionError(f"rasterize_fwd launched {sl['launches']} times "
-                             "on the main path, expected one per view")
+                             "on the render path, expected one per view")
+    tr = phase_train(device)
+    # launches: each kernel's count on this slice's main path, the training
+    # run; the forward kernel's times are those of the render path's view
     emit(kernels=[{
         "name": "rasterize_fwd", "route": "cuda",
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_fwd.cu",
         "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:532",
-        "launches": sl["launches"],
+        "launches": tr["launches"]["rasterize_fwd"],
         "max_abs_err": max(worst, sl["max_abs_err"]),
         "ms": sl["kernel_ms"], "plain_ms": sl["plain_ms"],
         "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
+        "library_ms": None}, {
+        "name": "rasterize_bwd", "route": "cuda",
+        "source": "vcr_gaus_tpu_torch/csrc/rasterize_bwd.cu",
+        "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:800",
+        "launches": tr["launches"]["rasterize_bwd"],
+        "max_abs_err": max(worst_bwd, tr["max_abs_err"]),
+        "ms": tr["kernel_ms"], "plain_ms": tr["plain_ms"],
+        "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
         "library_ms": None}])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",

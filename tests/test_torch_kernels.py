@@ -10,7 +10,10 @@ port is installed:
 import pytest
 import torch
 
-from chip_smoke import compare_kernel, saturated_scene, splat_scene
+from chip_smoke import (BWD_SATURATED, compare_backward, compare_kernel,
+                        saturated_scene, splat_scene)
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -45,6 +48,37 @@ def test_rasterize_fwd_launch_count(cuda):
     R.reset_launch_counts()
     compare_kernel(feats, radius, cam, 40, 24, 0, "traditional", cuda)
     assert R.LAUNCHES["rasterize_fwd"] == 1
+
+
+@pytest.mark.parametrize("depth_mode", ["traditional", "intersection"])
+@pytest.mark.parametrize("ch_sem", [0, 3, 8])
+def test_rasterize_bwd_matches_plain(cuda, depth_mode, ch_sem):
+    feats, radius, cam = splat_scene(n=400, seed=ch_sem, ch_sem=ch_sem,
+                                     width=72, height=40)
+    # compare_backward holds each column group of the (N, 16+S) gradient to
+    # atol 2e-3 times the group's max|g|, rtol 2e-3
+    compare_backward(feats, radius, cam, 72, 40, ch_sem, depth_mode, cuda)
+
+
+def test_rasterize_bwd_saturated(cuda):
+    feats, radius, cam = saturated_scene()
+    compare_backward(feats, radius, cam, 40, 24, 0, "traditional", cuda,
+                     tol=BWD_SATURATED)
+
+
+def test_rasterize_bwd_through_autograd(cuda):
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    feats, radius, cam = splat_scene(seed=11)
+    f = torch.tensor(feats, device=cuda, requires_grad=True)
+    dummy = torch.zeros((f.shape[0], 2), device=cuda, requires_grad=True)
+    R.reset_launch_counts()
+    img, _ = R.rasterize_image(f, dummy, f.detach()[:, :2],
+                               torch.tensor(radius, device=cuda),
+                               f.detach()[:, 6], torch.tensor(cam, device=cuda),
+                               40, 24, 0, "intersection")
+    img.square().sum().backward()
+    assert dict(R.LAUNCHES) == {"rasterize_fwd": 1, "rasterize_bwd": 1}
+    assert bool(torch.isfinite(f.grad).all()) and float(dummy.grad.sum()) > 0
 
 
 def test_rasterize_fwd_rejects_mixed_devices(cuda):

@@ -222,7 +222,8 @@ def _raster_jax(feats, radius, cam, depth_mode, ch_sem, w=RW, h=RH):
 def _raster_port(feats, radius, cam, depth_mode, ch_sem, w=RW, h=RH):
     f = t(np.asarray(feats))
     out, binn = R.rasterize_image(
-        f, f[:, [PF.F_MEAN_X, PF.F_MEAN_Y]], t(np.asarray(radius)),
+        f, f.new_zeros((f.shape[0], 2)), f[:, [PF.F_MEAN_X, PF.F_MEAN_Y]],
+        t(np.asarray(radius)),
         f[:, PF.F_DEPTH_Z], t(cam), w, h, ch_sem, depth_mode)
     assert binn.overflow is False
     return out.numpy()

@@ -1,9 +1,8 @@
 """Scene loading: COLMAP / Blender readers (vcr_gaus_tpu/data/scene.py).
 
-Images stay u8 on the host ((3,H,W) uint8, lossless for PNG/JPEG sources);
-``Camera.arrays(device)`` turns them into float32 on the device per use.
-The depth/normal/mask priors are training inputs and wait for the training
-slice of the port.
+Images stay u8 on the host ((3,H,W) uint8, lossless for PNG/JPEG sources)
+and normal priors f16; ``Camera.arrays(device)`` turns them into float32 on
+the device per use. The depth and mask priors wait for slice C of the port.
 """
 
 from __future__ import annotations
@@ -75,6 +74,27 @@ def _resolve_resolution(orig_w: int, orig_h: int, resolution: int,
     return int(orig_w / scale), int(orig_h / scale)
 
 
+def _load_normal(base: str, name: str,
+                 resolution: tuple[int, int]) -> np.ndarray | None:
+    """The (3,H,W) float16 normal prior ``<base>/<stem>.npz`` (``arr_0``,
+    (3,H,W) or (H,W,3)), bilinearly resized to ``resolution`` (W,H) when it
+    differs; None when the file is absent. float16 as the JAX package keeps
+    it (the priors ship as float16)."""
+    path = os.path.join(base, os.path.splitext(name)[0] + ".npz")
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        arr = z["arr_0"].astype(np.float32)
+    if arr.shape[0] != 3:
+        arr = arr.transpose(2, 0, 1)
+    w, h = resolution
+    if arr.shape[1:] != (h, w):
+        arr = torch.nn.functional.interpolate(
+            torch.from_numpy(arr)[None], size=(h, w), mode="bilinear",
+            align_corners=False)[0].numpy()
+    return arr.astype(np.float16)
+
+
 def read_colmap_scene(
     path: str,
     images_dir: str = "images",
@@ -85,15 +105,19 @@ def read_colmap_scene(
     load_depth: bool = False,
     load_normal: bool = False,
     load_mask: bool = False,
+    normal_folder: str = "normals",
+    depth_folder: str = "depths",
     resolution: int = -1,
     filter_pcd: bool = True,
     data_device: str = "host",
 ) -> SceneInfo:
-    """data_device: 'host' keeps u8 images in host RAM; 'lazy' keeps only
-    their paths and decodes on each use."""
-    if load_depth or load_normal or load_mask:
+    """data_device: 'host' keeps u8 images (and f16 normal priors) in host
+    RAM; 'lazy' keeps only their paths and decodes on each use. The normal
+    prior of image ``x.png`` is ``<normal_folder>/x.npz`` beside the image
+    folder."""
+    if load_depth or load_mask:
         raise NotImplementedError(
-            "depth/normal/mask priors are not read by the port yet")
+            "depth and mask priors come with slice C of the port")
     colmap_dir = os.path.join(path, "sparse/0")
     if not os.path.exists(colmap_dir):
         colmap_dir = os.path.join(path, "sparse")
@@ -123,16 +147,25 @@ def read_colmap_scene(
         name = os.path.basename(e.name)
         res = _resolve_resolution(ic.width, ic.height, resolution)
         img_path = os.path.join(img_root, name)
+        specs = {"image": lambda p=img_path, r=res: _load_image(p, r)}
+        nrm_base = img_root.replace("images", normal_folder)
+        if load_normal:
+            specs["normal"] = (lambda b=nrm_base, n=name, r=res:
+                               _load_normal(b, n, r))
         if data_device == "lazy":
-            image = None
-            loaders = {"image": lambda p=img_path, r=res: _load_image(p, r)}
+            # path probes only, so has_normal is known without decoding
+            loaders = {k: fn for k, fn in specs.items() if k == "image"
+                       or os.path.exists(os.path.join(
+                           nrm_base, os.path.splitext(name)[0] + ".npz"))}
+            eager = {}
         else:
-            image = _load_image(img_path, res)
             loaders = None
+            eager = {k: fn() for k, fn in specs.items()}
         cams.append(Camera(
             colmap_id=ic.id, idx=0, image_name=os.path.splitext(name)[0],
             R=R, T=T, fovx=fovx, fovy=fovy, width=res[0], height=res[1],
-            image=image, loaders=loaders))
+            image=eager.get("image"), normal=eager.get("normal"),
+            loaders=loaders))
     cams.sort(key=lambda c: c.image_name)
 
     # meta.json box normalization

@@ -33,12 +33,15 @@ class RenderConfig(NamedTuple):
 
 def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
            bg_color: torch.Tensor, sh_degree: int,
-           scene_extent: float = 1.0) -> dict[str, Any]:
+           scene_extent: float = 1.0,
+           densify_dummy: torch.Tensor | None = None) -> dict[str, Any]:
     """The JAX package's output dict: render (3,H,W), depth (H,W), normal
     (H,W,3), est_normal (H,W,3), alpha (H,W), mask (H,W) bool, radii (C,),
-    visibility_filter (C,), num_entries, overflow (always False),
-    depth_var, distortion, and render_sem when ch_sem > 0. Runs on the
-    device of the state's tensors."""
+    visibility_filter (C,), densify_dummy (C,2), num_entries, overflow
+    (always False), depth_var, distortion, and render_sem when ch_sem > 0.
+    Runs on the device of the state's tensors and is differentiable in the
+    state's parameters through torch.autograd; differentiate with respect
+    to ``densify_dummy`` (zeros) for the |d mean2d| stream."""
     # spans read by torch.profiler (chip_smoke.py's phase "profile"); a
     # record_function costs nothing measurable when no profiler runs
     with record_function("render.project"):
@@ -69,9 +72,11 @@ def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
                                  cfg.ch_sem)
         cam_vec = torch.cat([cam.intr, bg_color.to(cam.intr),
                              cam.intr.new_zeros(1)]).contiguous()
-    img, binn = R.rasterize_image(feats, proj.mean2d, radius, proj.depth_z,
-                                  cam_vec, cfg.width, cfg.height, cfg.ch_sem,
-                                  cfg.depth_mode, extents=proj.ext)
+        dummy = (densify_dummy if densify_dummy is not None
+                 else xyz.new_zeros((xyz.shape[0], 2)))
+    img, binn = R.rasterize_image(feats, dummy, proj.mean2d, radius,
+                                  proj.depth_z, cam_vec, cfg.width, cfg.height,
+                                  cfg.ch_sem, cfg.depth_mode, extents=proj.ext)
 
     with record_function("render.post"):
         wd_sum, wd2_sum, alpha = img[6], img[7], img[8]
@@ -95,6 +100,7 @@ def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
             "mask": mask,
             "radii": radius,
             "visibility_filter": radius > 0,
+            "densify_dummy": dummy,
             "overflow": binn.overflow,
             "num_entries": binn.num_entries,
             "depth_var": L.depth_var_from_moments(alpha, wd_sum, wd2_sum),

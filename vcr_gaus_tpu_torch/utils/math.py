@@ -1,8 +1,49 @@
-"""Quaternion / covariance math on tensors (vcr_gaus_tpu/utils/math.py)."""
+"""Quaternion / covariance math, the LR schedule and the box test
+(vcr_gaus_tpu/utils/math.py)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def inverse_sigmoid(x):
+    return torch.log(x / (1.0 - x))
+
+
+def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+             max_steps=1_000_000) -> float:
+    """Log-linear interpolated LR with an optional delay, evaluated in
+    float32 as the JAX package does; a host float."""
+    f32 = np.float32
+    step = f32(step)
+    if lr_init == 0.0 and lr_final == 0.0:
+        return 0.0
+    if lr_delay_steps > 0:
+        delay_rate = f32(lr_delay_mult + (1 - lr_delay_mult) * np.sin(
+            0.5 * np.pi * np.clip(step / f32(lr_delay_steps), 0, 1)))
+    else:
+        delay_rate = f32(1.0)
+    t = np.clip(step / f32(max_steps), f32(0), f32(1))
+    log_lerp = np.exp(np.log(f32(lr_init)) * (f32(1) - t)
+                      + np.log(f32(lr_final)) * t)
+    return 0.0 if step < 0 else float(delay_rate * log_lerp)
+
+
+def normalize_pts(pts: torch.Tensor, trans, scale) -> torch.Tensor:
+    """World points -> normalized box space; ``trans`` is a translation (3,)
+    or an oriented-box 4x4 transform."""
+    trans = torch.as_tensor(np.asarray(trans, np.float32), device=pts.device)
+    scale = torch.as_tensor(np.asarray(scale, np.float32), device=pts.device)
+    if trans.ndim == 1:
+        return (pts - trans) / scale
+    return (pts @ trans[:3, :3].T + trans[:3, 3]) / scale
+
+
+def get_inside_normalized(xyz: torch.Tensor, trans, scale, bound=1.0):
+    """(inside-the-box mask, normalized points)."""
+    pts = normalize_pts(xyz, trans, scale)
+    return torch.all(torch.abs(pts) < bound, dim=-1), pts
 
 
 def safe_normalize(v: torch.Tensor, eps: float = 1e-24) -> torch.Tensor:
