@@ -28,6 +28,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              loss gate open, the step time, a torch.profiler stage table,
              the backward kernel's time, bound and plain time, and the
              kernel held against its plain version on one full-width step;
+  5. host_loop  the DTU recipe's host loop at full width: the same kind of
+             scene, tpu.capacity 2^21, configs/dtu/base.yaml with its own
+             prune schedule compressed (densify after 20, 30 and 40, each
+             with the box mask's 30 sampled views; opacity resets at 20 and
+             40; the LightGaussian prune at 30; test and save at 40; a
+             checkpoint at 20) through the CLI, then resumed from the
+             checkpoint through the CLI; the launch counts against the
+             schedule's, the population at each host action, the files
+             written; then the stats kernel's time, bound and plain time,
+             held against its plain version, on the inputs the run gave it
+             for the first view of the densifies at 20 and 30 (the kernels
+             line reads the one at 20), and on one view of the final state
+             as it is and at opacity 0.1, each with the share of its pairs
+             that is live and the Gaussians' live areas that explain it;
+             the host time of one densify and one prune;
 then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of vcr_gaus_tpu.
 """
@@ -71,6 +86,13 @@ OPS_LIVE, OPS_LIVE_SEM, OPS_LIVE_INTERSECT = 20, 2, 8
 # over the tile's pixels; in intersection mode the depth ray . n, its clamp
 # and divide (8) and the plane-offset and normal terms (10)
 OPS_BWD_LIVE, OPS_BWD_LIVE_SEM, OPS_BWD_LIVE_INTERSECT = 83, 5, 18
+# the same count for rasterize_stats.cu's loop body, over in-image pixels
+# (the others do nothing): every pair and the tests as in the forward; a
+# live pair: min, w, 1 - alpha, T *= (4), and its two adds to the tile's
+# per-entry sums of hits and weights (2)
+OPS_STATS_LIVE = 6
+# host_loop: stats launch of the run -> the densify view it is the first of
+DENSIFY_CAPTURES = {0: "densify_20", 30: "densify_30"}
 BWD = dict(rtol=2e-3)              # and atol 2e-3 max|g| per column group
 BWD_SATURATED = dict(rtol=5e-2)    # tests/test_rasterize.py:432
 # bench.py's dtu_full weights: the DTU recipe with every gate open
@@ -228,6 +250,32 @@ def compare_backward(feats, radius, cam, width, height, ch_sem, depth_mode,
     return assert_grads_close(got, want, ch_sem, tol["rtol"])
 
 
+def compare_stats(feats, radius, width, height, device):
+    """Stats kernel wrapper vs its plain version on the same inputs on
+    ``device``: the hit counts exactly equal, the importance at the forward
+    tolerance. Returns (max abs importance error, batches walked per tile,
+    batches held per tile)."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+
+    f = torch.tensor(feats, device=device)
+    binn = B.bin_gaussians(f[:, :2], torch.tensor(radius, device=device),
+                           f[:, 6], width, height)
+    n_tx, _ = B.tile_grid(width, height)
+    got = R.rasterize_stats(f, binn, width, height)
+    want, batches = R.composite_tiles_stats_torch(
+        f, binn.sorted_gid, binn.tile_starts, binn.tile_counts, n_tx, width,
+        height)
+    if not torch.equal(got[:, 0], want[:, 0]):
+        raise AssertionError("stats kernel hit counts differ from the plain "
+                             "version")
+    torch.testing.assert_close(got[:, 1], want[:, 1], **FWD)
+    held = (binn.tile_counts + R.BATCH - 1) // R.BATCH
+    return float((got[:, 1] - want[:, 1]).abs().max()), batches, held
+
+
 def worst_error(groups) -> float:
     return max((err for err, _ in groups.values()), default=0.0)
 
@@ -242,24 +290,30 @@ def phase_kernel(device) -> tuple[float, float]:
              ("intersection", 3, 40, 24, splat_scene(seed=3, ch_sem=3)),
              ("intersection", 3, 200, 150,
               splat_scene(n=3000, seed=4, ch_sem=3, width=200, height=150))]
-    worst = worst_bwd = 0.0
+    worst = worst_bwd = worst_stats = 0.0
     for mode, ch_sem, w, h, (feats, radius, cam) in cases:
         err, _, _ = compare_kernel(feats, radius, cam, w, h, ch_sem, mode,
                                    device)
         bwd = compare_backward(feats, radius, cam, w, h, ch_sem, mode, device)
+        # the stats kernel reads no depth: the same check in both modes
+        st_err, _, _ = compare_stats(feats, radius, w, h, device)
         worst = max(worst, *err.values())
         worst_bwd = max(worst_bwd, worst_error(bwd))
+        worst_stats = max(worst_stats, st_err)
         emit(phase="kernel", case=f"{mode}_sem{ch_sem}_{w}x{h}",
-             max_abs_err=err, bwd_err_and_max_grad=bwd)
+             max_abs_err=err, bwd_err_and_max_grad=bwd,
+             stats_imp_max_abs_err=st_err)
     feats, radius, cam = splat_scene(seed=5)
     err, _, _ = compare_kernel(feats, radius * 0, cam, 40, 24, 0,
                                "traditional", device)
     bwd = compare_backward(feats, radius * 0, cam, 40, 24, 0, "traditional",
                            device)
+    st_err, _, _ = compare_stats(feats, radius * 0, 40, 24, device)
     worst = max(worst, *err.values())
     worst_bwd = max(worst_bwd, worst_error(bwd))
+    worst_stats = max(worst_stats, st_err)
     emit(phase="kernel", case="all_culled_40x24", max_abs_err=err,
-         bwd_err_and_max_grad=bwd)
+         bwd_err_and_max_grad=bwd, stats_imp_max_abs_err=st_err)
     feats, radius, cam = saturated_scene()
     err, batches, held = compare_kernel(feats, radius, cam, 40, 24, 0,
                                         "traditional", device)
@@ -267,13 +321,33 @@ def phase_kernel(device) -> tuple[float, float]:
         raise AssertionError("the early stop did not fire")
     bwd = compare_backward(feats, radius, cam, 40, 24, 0, "traditional",
                            device, tol=BWD_SATURATED)
+    st_err, st_batches, st_held = compare_stats(feats, radius, 40, 24, device)
+    if not bool((st_batches.cpu() < st_held.cpu()).any()):
+        raise AssertionError("the stats walk did not stop early")
+    # the same splats on the ragged bottom row: the forward kernel stops
+    # the tile, the stats walk (out-of-image pixels keep T = 1) does not
+    ragged = feats.copy()
+    ragged[:, 1] += 16.0
+    _, r_batches, r_held = compare_kernel(ragged, radius, cam, 40, 24, 0,
+                                          "traditional", device)
+    r_err, rs_batches, _ = compare_stats(ragged, radius, 40, 24, device)
+    t = -(-40 // 16)                        # first tile of the ragged row
+    if not (int(r_batches[t]) < int(r_held[t]) == int(rs_batches[t])):
+        raise AssertionError("ragged tile: forward batches "
+                             f"{r_batches.tolist()}, stats batches "
+                             f"{rs_batches.tolist()}, held {r_held.tolist()}")
     worst = max(worst, *err.values())
     worst_bwd = max(worst_bwd, worst_error(bwd))
+    worst_stats = max(worst_stats, st_err, r_err)
     emit(phase="kernel", case="saturated_40x24", max_abs_err=err,
          bwd_err_and_max_grad=bwd,
          batches_done=batches.tolist(),
-         batches_held=held.tolist())
-    return worst, worst_bwd
+         batches_held=held.tolist(), stats_imp_max_abs_err=st_err,
+         stats_batches=st_batches.tolist(),
+         ragged_row_stats_imp_max_abs_err=r_err,
+         ragged_row_fwd_batches=r_batches.tolist(),
+         ragged_row_stats_batches=rs_batches.tolist())
+    return worst, worst_bwd, worst_stats
 
 
 def write_colmap_views(scene, width, height, n_views, image_fn):
@@ -446,10 +520,12 @@ def composited_census(binn, batches) -> tuple[int, int]:
     return int(used.sum()), int(torch.unique(binn.sorted_gid[used]).numel())
 
 
-def pair_census(feats, binn, batches, n_tx) -> list[int]:
+def pair_census(feats, binn, batches, n_tx, width=None,
+                height=None) -> list[int]:
     """Counts of the (pixel, entry) pairs the kernel evaluates on one view:
     all of them (every entry of each batch a tile composited, for all of
-    the tile's pixels), those past the power test, and the live ones."""
+    the tile's pixels, or only those inside a ``width`` x ``height`` image),
+    those past the power test, and the live ones."""
     import torch
 
     from vcr_gaus_tpu_torch.ops import projection as PF
@@ -476,11 +552,13 @@ def pair_census(feats, binn, batches, n_tx) -> list[int]:
             power = (-0.5 * (f[:, None, :, PF.F_CONIC_A] * dx * dx
                              + f[:, None, :, PF.F_CONIC_C] * dy * dy)
                      - f[:, None, :, PF.F_CONIC_B] * dx * dy)
-            passed = (power <= 0.0) & valid[:, None, :]
+            pairs = valid[:, None, :].expand(-1, pix.numel(), -1)
+            if width is not None:
+                pairs = pairs & ((px < width) & (py < height))[:, :, None]
+            passed = (power <= 0.0) & pairs
             live = passed & (f[:, None, :, PF.F_OPACITY] * torch.exp(power)
                              >= ALPHA_EPS)
-            counts += torch.stack([valid.sum() * pix.numel(), passed.sum(),
-                                   live.sum()])
+            counts += torch.stack([pairs.sum(), passed.sum(), live.sum()])
     return counts.tolist()
 
 
@@ -678,8 +756,9 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
 
         R.reset_launch_counts()
         t0 = time.perf_counter()
-        # 20 iterations of the DTU recipe; a run this short has no prune,
-        # whose final importance dump needs the stats kernel of slice C
+        # 20 iterations of the DTU recipe without its prune schedule, so
+        # that the run launches the two compositing kernels alone; phase
+        # host_loop runs the prune and the importance dump
         trainer = train_main([
             "--config", os.path.join(REPO, "configs", "dtu", "base.yaml"),
             "--device", str(device), f"--logdir={logdir}",
@@ -687,10 +766,12 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
             "--optim.prune.iterations=[]", f"--tpu.capacity={1 << 20}"])
         train_s = time.perf_counter() - t0
         launches = dict(R.LAUNCHES)
-        # one forward and one backward launch per step, and one forward per
+        # one forward and one backward launch per step, one forward per
         # view in each of the two final sweeps (the last iteration's test
-        # sweep and the CLI's evaluation)
-        want = {"rasterize_fwd": iters + 2 * n_views, "rasterize_bwd": iters}
+        # sweep and the CLI's evaluation), and one for the test sweep's
+        # panel
+        want = {"rasterize_fwd": iters + 2 * n_views + 1,
+                "rasterize_bwd": iters}
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         hist = trainer.history
@@ -845,6 +926,305 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
                 max_abs_err=worst_error(groups))
 
 
+def schedule_launches(trainer, first: int, last: int,
+                      n_full: int) -> dict[str, int]:
+    """The stats, forward and backward launches the schedule implies for
+    iterations first..last of ``trainer``'s recipe: one forward and one
+    backward per step; per densify the box mask's sampled views, per prune
+    and for the final importance dump one stats launch per view of the
+    ``n_full`` train and test views; per test sweep one forward per train
+    view and one for the panel."""
+    sc = trainer.cfg.optim.densify_large.sample_cams
+    n_train = len(trainer.scene.train_cameras)
+    want = {"rasterize_fwd": 0, "rasterize_bwd": 0, "rasterize_stats": 0}
+    for j in range(first, last + 1):
+        want["rasterize_fwd"] += 1
+        want["rasterize_bwd"] += 1
+        for act in trainer.host_actions(j):
+            if act == "densify":
+                want["rasterize_stats"] += int(sc.num)
+            elif act in ("prune", "dump importance"):
+                want["rasterize_stats"] += n_full
+            elif act == "test":
+                want["rasterize_fwd"] += n_train + 1
+    return want
+
+
+def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
+                    n_views=8, iters=40, resume_iters=4, capacity=1 << 21,
+                    timing_iters=20) -> dict:
+    """Phase 5: the DTU recipe's host loop at full width through the CLI,
+    the resume, and the stats kernel's numbers."""
+    import dataclasses
+
+    import torch
+
+    from vcr_gaus_tpu_torch.models import gaussians as GM
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.train.__main__ import main as train_main
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        scene = write_train_scene(root, n_gauss, width, height, n_views)
+        setup_s = time.perf_counter() - t0
+        logdir = os.path.join(root, "run")
+        args = ["--config", os.path.join(REPO, "configs", "dtu", "base.yaml"),
+                "--device", str(device), f"--model.source_path={scene}",
+                f"--optim.iterations={iters}", "--optim.densify_from_iter=10",
+                "--optim.densification_interval=10",
+                "--optim.opacity_reset_interval=20",
+                "--optim.prune.iterations=[30]",
+                f"--train.test_iterations=[{iters}]",
+                f"--train.save_iterations=[{iters}]",
+                "--train.checkpoint_iterations=[20]",
+                f"--tpu.capacity={capacity}"]
+
+        # the largest active opacity right after each opacity reset
+        resets = []
+        reset_opacity = GM.reset_opacity
+
+        def spy(state):
+            out = reset_opacity(state)
+            resets.append(float(out.opacity[out.active].max()))
+            return out
+
+        # the stats kernel's inputs of the first view of the densifies at
+        # 20 (20 steps from the init opacity 0.1) and at 30 (10 steps after
+        # the reset at 20): launches 0 and 30 of the run, 30 views each
+        captured = {}
+        wrapped = R.rasterize_stats
+
+        def stats_spy(feats, binn, w, h):
+            if R.LAUNCHES["rasterize_stats"] in DENSIFY_CAPTURES:
+                captured[DENSIFY_CAPTURES[R.LAUNCHES["rasterize_stats"]]] = (
+                    feats.clone(), B.Binning(*(
+                        t.clone() if torch.is_tensor(t) else t
+                        for t in binn)), w, h)
+            return wrapped(feats, binn, w, h)
+
+        GM.reset_opacity = spy
+        R.rasterize_stats = stats_spy
+        R.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            trainer = train_main(args + [f"--logdir={logdir}"])
+        finally:
+            GM.reset_opacity = reset_opacity
+            R.rasterize_stats = wrapped
+        train_s = time.perf_counter() - t0
+        launches = dict(R.LAUNCHES)
+        if (int(trainer.cfg.optim.densify_large.sample_cams.num) != 30
+                or sorted(captured) != sorted(DENSIFY_CAPTURES.values())):
+            raise AssertionError(f"densify inputs captured: {list(captured)}")
+        n_full = (len(trainer.scene.train_cameras)
+                  + len(trainer.scene.test_cameras))
+        want = schedule_launches(trainer, 1, iters, n_full)
+        # the CLI's final evaluation renders every train view
+        want["rasterize_fwd"] += len(trainer.scene.train_cameras)
+        if launches != want:
+            raise AssertionError(f"launches {launches}, expected {want}")
+        hist = trainer.history
+        if len(hist) != iters or not all(
+                math.isfinite(v) for h in hist for v in h.values()):
+            raise AssertionError(f"training history: {hist}")
+        log = trainer.host_log
+        acts = [(r["iter"], r["action"]) for r in log]
+        expected = [(20, "densify"), (20, "reset opacity"), (30, "densify"),
+                    (30, "prune"), (40, "densify"), (40, "reset opacity")]
+        if acts != expected:
+            raise AssertionError(f"host actions {acts}, expected {expected}")
+        for r in log:
+            if r["action"] == "densify" and r["n_after"] == r["n_before"]:
+                raise AssertionError(f"densify left the population: {r}")
+            if r["action"] == "prune":
+                k = int(np.float32(trainer.cfg.optim.prune.percent)
+                        * np.float32(r["n_before"] - 1))
+                if r["n_after"] != r["n_before"] - k:
+                    raise AssertionError(f"prune: {r}, expected k = {k}")
+        if len(resets) != 2 or max(resets) > 0.01:
+            raise AssertionError(f"max opacity after the resets: {resets}")
+        out = os.path.join(logdir, "point_cloud", f"iteration_{iters}")
+        files = ["cameras.json", "cfg_args", f"vis/iter_{iters:06d}.png",
+                 f"{out}/point_cloud.ply", f"{out}/point_cloud_inside.ply",
+                 "imp_score.npz", "chkpnt20.npz"]
+        missing = [f for f in files
+                   if not os.path.exists(os.path.join(logdir, f))]
+        if missing:
+            raise AssertionError(f"not written: {missing}")
+        emit(phase="host_loop", gaussians_init=n_gauss, width=width,
+             height=height, views=n_views, iterations=iters,
+             setup_s=setup_s, train_main_s=train_s, launches=launches,
+             host_log=log, max_opacity_after_reset=resets,
+             capacity=trainer.state.capacity,
+             gaussians=trainer.state.num_active,
+             test=trainer.test_history,
+             losses_first_last=[hist[0], hist[-1]])
+
+        # resume from the checkpoint at 20 through the CLI
+        R.reset_launch_counts()
+        t0 = time.perf_counter()
+        # (a later override of a key replaces an earlier one)
+        resumed = train_main(args + [
+            f"--logdir={os.path.join(root, 'resume')}",
+            f"--optim.iterations={20 + resume_iters}",
+            f"--train.test_iterations=[{20 + resume_iters}]",
+            f"--train.save_iterations=[{20 + resume_iters}]",
+            f"--train.start_checkpoint={logdir}/chkpnt20.npz"])
+        resume_s = time.perf_counter() - t0
+        r_launches = dict(R.LAUNCHES)
+        r_want = schedule_launches(resumed, 21, 20 + resume_iters, n_full)
+        r_want["rasterize_fwd"] += len(resumed.scene.train_cameras)
+        got_iters = [h["iter"] for h in resumed.history]
+        if (got_iters != list(range(21, 21 + resume_iters))
+                or r_launches != r_want):
+            raise AssertionError(f"resume: iterations {got_iters}, launches "
+                                 f"{r_launches}, expected {r_want}")
+        emit(phase="host_loop_resume", from_iteration=20,
+             iterations=got_iters, train_main_s=resume_s,
+             launches=r_launches, gaussians=resumed.state.num_active)
+        del resumed
+
+        # the stats kernel on the captured densify views, on one full-width
+        # view of the final state (its opacities at most 0.01 after the
+        # reset at 40), and of that state with every opacity at 0.1
+        k3 = {name: stats_kernel_numbers(*captured.pop(name), timing_iters)
+              for name in DENSIFY_CAPTURES.values()}
+        cam = trainer.scene.train_cameras[0].arrays(device, pixels=False)
+        state = trainer.state
+        k3["final_after_reset"] = stats_kernel_numbers(
+            *stats_inputs(state, cam, trainer.rcfg), timing_iters)
+        opaque = state.replace(params=dataclasses.replace(
+            state.params, logit_opacity=torch.where(
+                state.active[:, None], math.log(0.1 / 0.9),
+                state.params.logit_opacity)))
+        k3["final_at_opacity_0.1"] = stats_kernel_numbers(
+            *stats_inputs(opaque, cam, trainer.rcfg), timing_iters)
+        del opaque
+
+        # host time of one densify (its 30-view stats sweep included) and
+        # of one prune, after two steps that refill the densify statistics
+        for _ in range(2):
+            trainer.train_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.densify(20)
+        torch.cuda.synchronize()
+        densify_ms = 1e3 * (time.perf_counter() - t0)
+        sweep_views = [trainer.scene.train_cameras[i % n_views].arrays(
+            device, pixels=False) for i in range(30)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._stats_sweep(sweep_views)
+        torch.cuda.synchronize()
+        sweep_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        trainer.light_gaussian_prune(1)
+        torch.cuda.synchronize()
+        prune_ms = 1e3 * (time.perf_counter() - t0)
+
+    emit(phase="host_loop_stats", gaussians=state.num_active, **k3,
+         densify_host_ms=densify_ms, stats_sweep_30_views_host_ms=sweep_ms,
+         prune_host_ms=prune_ms, library_ms=None)
+    main_view = k3["densify_20"]
+    return dict(launches=launches, kernel_ms=main_view["kernel_ms"],
+                plain_ms=main_view["plain_ms"],
+                bound_ms=main_view["bound_ms"],
+                bound_by=main_view["bound_by"],
+                max_abs_err=max(v["imp_max_abs_err"] for v in k3.values()))
+
+
+def stats_inputs(state, cam, rcfg):
+    """The (feats, binning, width, height) ``render_stats`` gives the stats
+    kernel for one view."""
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.render.renderer import render_stats
+
+    captured = []
+    wrapped = R.rasterize_stats
+
+    def spy(*a):
+        captured.append(a)
+        return wrapped(*a)
+
+    R.rasterize_stats = spy
+    try:
+        render_stats(state, cam, rcfg)
+    finally:
+        R.rasterize_stats = wrapped
+    return captured[0]
+
+
+def live_area_census(feats, binn) -> dict:
+    """Why a view's pairs are live or not: over the Gaussians it bins, the
+    area in pixels where a Gaussian's alpha reaches 1/255 (the ellipse
+    0.5 d^T conic d <= ln(255 opacity), 2 pi ln(255 opacity) / sqrt(det
+    conic)), against the 256 pixels of each tile it is binned to. Their
+    sum estimates the live pairs (no early stop, no image edge)."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import projection as PF
+
+    f = feats[torch.unique(binn.sorted_gid.to(torch.int64))].double()
+    a, b, c = (f[:, k] for k in (PF.F_CONIC_A, PF.F_CONIC_B, PF.F_CONIC_C))
+    lvl = torch.log(255.0 * f[:, PF.F_OPACITY]).clamp_min(0.0)
+    area = 2.0 * math.pi * lvl / torch.sqrt(a * c - b * b)
+    n = f.shape[0]
+    return dict(binned_gaussians=n,
+                tiles_per_gaussian=binn.num_entries / max(n, 1),
+                median_opacity=float(f[:, PF.F_OPACITY].median()) if n else 0,
+                median_live_area_px=float(area.median()) if n else 0,
+                live_pairs_ellipse_estimate=float(area.sum()))
+
+
+def stats_kernel_numbers(feats, binn, w, h, timing_iters) -> dict:
+    """The stats kernel on one view's inputs: its time (CUDA events,
+    median), the plain version's, the two held against each other, the
+    bound from this view's pairs, and what makes its pairs live."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+
+    n_tx, _ = B.tile_grid(w, h)
+
+    def kernel():
+        return R.rasterize_stats(feats, binn, w, h)
+
+    def plain():
+        return R.composite_tiles_stats_torch(
+            feats, binn.sorted_gid, binn.tile_starts, binn.tile_counts, n_tx,
+            w, h)
+
+    kernel_ms = cuda_ms(kernel, iters=timing_iters)
+    plain_ms = cuda_ms(plain, warmup=1, iters=3)
+    got = kernel()
+    want, batches = plain()
+    if not torch.equal(got[:, 0], want[:, 0]):
+        raise AssertionError("full-width stats: hit counts differ")
+    torch.testing.assert_close(got[:, 1], want[:, 1], **FWD)
+    walked, rows = composited_census(binn, batches)
+    pairs, power_pass, live = pair_census(feats, binn, batches, n_tx, w, h)
+    ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
+           + OPS_STATS_LIVE * live)
+    flop_s = ops / PEAK_FP32
+    # gids read once, six feature columns of each Gaussian read once, the
+    # tile ranges, the (N, 2) stats written once
+    nbytes = (4 * walked + 4 * 6 * rows + 8 * binn.tile_counts.numel()
+              + 8 * feats.shape[0])
+    byte_s = nbytes / PEAK_BYTES
+    return dict(entries=binn.num_entries, walked_entries=walked,
+                pairs=pairs, pairs_past_power_test=power_pass,
+                live_pairs=live, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ops=ops, bound_ms=1e3 * max(flop_s, byte_s),
+                bound_flop_ms=1e3 * flop_s, bound_byte_ms=1e3 * byte_s,
+                bound_by="operations" if flop_s >= byte_s else "bytes",
+                feature_rows_read=rows, live_share=live / max(pairs, 1),
+                **live_area_census(feats, binn),
+                imp_max_abs_err=float((got[:, 1] - want[:, 1]).abs().max()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -871,14 +1251,17 @@ def main() -> int:
          ptxas={k: [ln for ln in v.splitlines() if "Used" in ln or "spill" in ln]
                 for k, v in reports.items()})
 
-    worst, worst_bwd = phase_kernel(device)
+    worst, worst_bwd, worst_stats = phase_kernel(device)
     sl = phase_slice(device)
     if sl["launches"] != 8:
         raise AssertionError(f"rasterize_fwd launched {sl['launches']} times "
                              "on the render path, expected one per view")
     tr = phase_train(device)
-    # launches: each kernel's count on this slice's main path, the training
-    # run; the forward kernel's times are those of the render path's view
+    hl = phase_host_loop(device)
+    # launches: each kernel's count on the main path of the slice that
+    # brought it (the training run for K1 and K2, the host loop's run for
+    # K3); the forward kernel's times are those of the render path's view,
+    # the stats kernel's those of the host loop's first densify view
     emit(kernels=[{
         "name": "rasterize_fwd", "route": "cuda",
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_fwd.cu",
@@ -895,6 +1278,14 @@ def main() -> int:
         "max_abs_err": max(worst_bwd, tr["max_abs_err"]),
         "ms": tr["kernel_ms"], "plain_ms": tr["plain_ms"],
         "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
+        "library_ms": None}, {
+        "name": "rasterize_stats", "route": "cuda",
+        "source": "vcr_gaus_tpu_torch/csrc/rasterize_stats.cu",
+        "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:923",
+        "launches": hl["launches"]["rasterize_stats"],
+        "max_abs_err": max(worst_stats, hl["max_abs_err"]),
+        "ms": hl["kernel_ms"], "plain_ms": hl["plain_ms"],
+        "bound_ms": hl["bound_ms"], "bound_by": hl["bound_by"],
         "library_ms": None}])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from chip_smoke import (BWD_SATURATED, compare_backward, compare_kernel,
-                        saturated_scene, splat_scene)
+                        compare_stats, saturated_scene, splat_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +91,51 @@ def test_rasterize_fwd_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         R.rasterize_forward(f, binn, torch.tensor(cam), 40, 24, 0,
                             "traditional")
+
+
+@pytest.mark.parametrize("case", ["traditional_72x40", "intersection_72x40",
+                                  "ragged_40x24", "all_culled_40x24"])
+def test_rasterize_stats_matches_plain(cuda, case):
+    w, h = (72, 40) if case.endswith("72x40") else (40, 24)
+    feats, radius, _ = splat_scene(n=400 if w == 72 else 60,
+                                   seed=len(case), width=w, height=h)
+    if case.startswith("all_culled"):
+        radius = radius * 0
+    # compare_stats holds the hit counts to exact equality and the
+    # importance to atol 2e-4, rtol 1e-3
+    err, _, _ = compare_stats(feats, radius, w, h, cuda)
+    assert err <= 2e-4
+
+
+def test_rasterize_stats_saturated_and_ragged(cuda):
+    feats, radius, cam = saturated_scene()
+    _, batches, held = compare_stats(feats, radius, 40, 24, cuda)
+    assert bool((batches.cpu() < held.cpu()).any())
+    # on the ragged bottom row the forward kernel stops, the stats walk not
+    feats[:, 1] += 16.0
+    _, fwd_batches, fwd_held = compare_kernel(feats, radius, cam, 40, 24, 0,
+                                              "traditional", cuda)
+    _, batches, _ = compare_stats(feats, radius, 40, 24, cuda)
+    assert int(fwd_batches[3]) < int(fwd_held[3]) == int(batches[3])
+
+
+def test_render_stats_launches_the_kernel(cuda):
+    import numpy as np
+
+    from vcr_gaus_tpu_torch.data.cameras import Camera
+    from vcr_gaus_tpu_torch.models.gaussians import create_from_pcd
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.render.renderer import RenderConfig, render_stats
+
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-1, 1, 200), rng.uniform(-1, 1, 200),
+                    rng.uniform(3, 6, 200)], 1).astype(np.float32)
+    state = create_from_pcd(pts, rng.uniform(0, 1, (200, 3)), 256, 3,
+                            device=cuda)
+    cam = Camera(colmap_id=0, idx=0, image_name="v", R=np.eye(3),
+                 T=np.zeros(3), fovx=0.9, fovy=0.7, width=64, height=48)
+    R.reset_launch_counts()
+    count, imp = render_stats(state, cam.arrays(cuda, pixels=False),
+                              RenderConfig(width=64, height=48))
+    assert dict(R.LAUNCHES) == {"rasterize_stats": 1}
+    assert float(count[:200].sum()) > 0 and float(imp[200:].abs().sum()) == 0

@@ -420,8 +420,12 @@ def _dtu_cfg(scene_dir, logdir, **optim):
 
 
 def test_trainer_trains_then_stops_before_densify(scene_dir, tmp_path):
+    """The Trainer from its init state through its first densify (after
+    iteration 4 here) and on; it stops only where a host action needs what
+    the port does not have yet, the random box cameras."""
     cfg = _dtu_cfg(scene_dir, tmp_path, densify_from_iter=2,
                    densification_interval=4)
+    cfg.optim.densify_large.sample_cams.num = 3
     tr = T.Trainer(cfg, device="cpu")
     # the init state is the JAX package's from the same scene
     info = jload_scene_info(scene_dir, load_normal=True,
@@ -448,41 +452,68 @@ def test_trainer_trains_then_stops_before_densify(scene_dir, tmp_path):
         assert tr._lr_xyz(it) == pytest.approx(
             float(JT.Trainer._lr_xyz(jtr, it)), rel=1e-6)
 
-    with pytest.raises(NotImplementedError, match="iteration 4 would "
-                       "densify.*slice C"):
-        tr.train(max_iters=10, log_every=2)
-    assert [r["iter"] for r in tr.history] == [1, 2, 3]
-    assert tr.iteration == 3
+    tr.train(max_iters=5, log_every=2)
+    assert [r["iter"] for r in tr.history] == [1, 2, 3, 4, 5]
+    assert tr.iteration == 5
+    (dens,) = tr.host_log
+    assert (dens["iter"], dens["action"]) == (4, "densify")
+    assert dens["n_after"] != dens["n_before"] == 400
     for rec in tr.history:
         assert np.isfinite(rec["total"]) and rec["l1"] > 0
         assert set(rec) >= {"l1", "ssim", "l1_scale", "mono_normal", "total"}
-        assert rec["n_active"] == tr.state.num_active
-    assert tr.state.adam.step == 3
-    assert float(tr.state.denom.max()) == 3.0
+    assert tr.history[-1]["n_active"] == tr.state.num_active
+    assert tr.state.adam.step == 5
+    # the statistics restarted at the densify: one visible step since
+    assert float(tr.state.denom.max()) == 1.0
+    # the random box cameras are a later slice's
+    tr.cfg.optim.densify_large.sample_cams.random = True
+    with pytest.raises(NotImplementedError, match="iteration 8 would "
+                       "densify with random box cameras"):
+        tr.train(max_iters=10, log_every=2)
+    assert tr.iteration == 7
 
 
 def test_train_cli_main_on_cpu(scene_dir, tmp_path, capsys):
+    """The CLI runs the DTU recipe with its own prune schedule (compressed:
+    densify after 2, 4 and 6, prune at 3 and 5, 6 iterations), then resumes
+    from its checkpoint."""
     from vcr_gaus_tpu_torch.models.ply_io import load_gaussian_ply
     from vcr_gaus_tpu_torch.train.__main__ import main
 
     args = ["--config", os.path.join(REPO, "configs", "dtu", "base.yaml"),
             f"--logdir={tmp_path}", f"--model.source_path={scene_dir}",
-            "--model.normal_folder=normals", "--optim.iterations=3",
-            "--optim.prune.iterations=[]"]
+            "--model.normal_folder=normals", "--optim.iterations=6",
+            "--optim.densify_from_iter=1", "--optim.densification_interval=2",
+            "--optim.prune.iterations=[3, 5]",
+            "--optim.densify_large.sample_cams.num=2",
+            "--train.checkpoint_iterations=[4]"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(args)
     tr = main(args + ["--device", "cpu"])
-    assert tr.iteration == 3 and len(tr.history) == 3
+    assert tr.iteration == 6 and len(tr.history) == 6
     out = capsys.readouterr().out
-    assert "[ITER 3] train: psnr=" in out and "final: {'psnr'" in out
+    assert "[ITER 6] train: psnr=" in out and "final: {'psnr'" in out
     assert os.path.exists(tmp_path / "config.yaml")
-    ply = tmp_path / "point_cloud" / "iteration_3" / "point_cloud.ply"
+    assert [(r["iter"], r["action"]) for r in tr.host_log] == [
+        (2, "densify"), (3, "prune"), (4, "densify"), (5, "prune"),
+        (6, "densify")]
+    prunes = [r for r in tr.host_log if r["action"] == "prune"]
+    for k, rec in enumerate(prunes):
+        n = rec["n_before"]
+        drop = int(np.float32(0.5 * 0.6 ** k) * np.float32(n - 1))
+        assert rec["n_after"] == n - drop
+    ply = tmp_path / "point_cloud" / "iteration_6" / "point_cloud.ply"
     loaded = load_gaussian_ply(str(ply), device="cpu")
     assert loaded.num_active == tr.state.num_active
     torch.testing.assert_close(loaded.params.xyz,
                                tr.state.params.xyz[tr.state.active])
-    # the DTU recipe prunes at 15000: its final importance dump needs the
-    # stats kernel of a later slice
-    with pytest.raises(NotImplementedError, match="dump importance"):
-        main(args[:-1] + ["--device", "cpu"])
+    assert os.path.exists(tmp_path / "imp_score.npz")
+    assert os.path.exists(tmp_path / "point_cloud" / "iteration_6"
+                          / "point_cloud_inside.ply")
+    # resume through the CLI from the checkpoint at 4
+    again = main(args + ["--device", "cpu", f"--logdir={tmp_path / 'resume'}",
+                         f"--train.start_checkpoint={tmp_path}/chkpnt4.npz"])
+    assert [r["iter"] for r in again.history] == [5, 6]
+    assert [(r["iter"], r["action"]) for r in again.host_log] == [
+        (5, "prune"), (6, "densify")]

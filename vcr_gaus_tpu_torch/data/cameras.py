@@ -92,15 +92,22 @@ class Camera:
             arr = self.loaders[kind]()
         return arr
 
-    def arrays(self, device: str | torch.device = "cuda") -> CameraArrays:
+    def arrays(self, device: str | torch.device = "cuda",
+               pixels: bool = True) -> CameraArrays:
         """The float32 tensors of this camera on ``device``. A u8 image is
-        moved as u8 and divided by 255 there."""
+        moved as u8 and divided by 255 there. ``pixels=False`` reads no
+        image or prior and carries 1x1 placeholders, for the consumers of
+        the geometry alone (the stats sweeps)."""
         dev = resolve_device(device)
         h, w = self.height, self.width
-        img = self._component("image")
-        normal = self._component("normal")
-        depth = self._component("depth")
-        mask = self._component("mask")
+        if pixels:
+            img = self._component("image")
+            normal = self._component("normal")
+            depth = self._component("depth")
+            mask = self._component("mask")
+        else:
+            h = w = 1
+            img = normal = depth = mask = None
 
         def f32(a):
             return torch.tensor(np.asarray(a), device=dev).to(torch.float32)

@@ -338,3 +338,20 @@ def load_scene_info(source_path: str, **kwargs) -> SceneInfo:
         kw = {k: v for k, v in kwargs.items() if k in blender_keys}
         return read_blender_scene(source_path, **kw)
     raise ValueError(f"could not recognize scene type at {source_path}")
+
+
+def camera_to_json(idx: int, cam: Camera) -> dict:
+    """The ``cameras.json`` entry of a camera (the 3DGS layout)."""
+    Rt = np.zeros((4, 4))
+    Rt[:3, :3] = cam.R.T
+    Rt[:3, 3] = cam.T
+    Rt[3, 3] = 1.0
+    c2w = np.linalg.inv(Rt)
+    return {
+        "id": idx, "img_name": cam.image_name,
+        "width": cam.width, "height": cam.height,
+        "position": c2w[:3, 3].tolist(),
+        "rotation": [r.tolist() for r in c2w[:3, :3]],
+        "fy": G.fov2focal(cam.fovy, cam.height),
+        "fx": G.fov2focal(cam.fovx, cam.width),
+    }

@@ -1,10 +1,11 @@
-"""Gaussian population state, its init and the padded Adam step
-(vcr_gaus_tpu/models/gaussians.py).
+"""Gaussian population state, its init, the padded Adam step and the
+population edits (vcr_gaus_tpu/models/gaussians.py).
 
 The state keeps the JAX package's fixed capacity and ``active`` mask, its
 Adam moments with one shared bias-correction step, and the densification
-statistics, so the two packages' states compare slot by slot. Clone, split,
-prune and opacity reset belong to a later slice of the port.
+statistics, so the two packages' states compare slot by slot. Clone, split
+and prune move rows between slots in the JAX package's slot order; the
+capacity grows only through ``expand_capacity``.
 """
 
 from __future__ import annotations
@@ -205,3 +206,209 @@ def add_densification_stats(state: GaussianState, abs_grad2d: torch.Tensor,
         max_radii2d=torch.where(
             vis, torch.maximum(state.max_radii2d, radii.to(torch.float32)),
             state.max_radii2d))
+
+
+# --- population edits: allocation, clone, split, prune (fixed capacity) -------
+
+def _slot_assignment(active: torch.Tensor, sel: torch.Tensor):
+    """For each selected slot (in index order), a distinct free slot (in
+    index order). Returns (src (C,), dst (C,), n_copy, dropped): src[j] is
+    copied to dst[j] for j < n_copy; the selected slots beyond the free
+    supply are dropped. The stable sorts are those of jnp.argsort."""
+    src = torch.argsort((~sel).to(torch.uint8), stable=True)
+    dst = torch.argsort(active.to(torch.uint8), stable=True)
+    n_sel, n_free = (int(x) for x in torch.stack(
+        [sel.sum(), (~active).sum()]).tolist())
+    return src, dst, min(n_sel, n_free), max(n_sel - n_free, 0)
+
+
+def _scatter_copy(params: GaussianParams, src: torch.Tensor, dst: torch.Tensor,
+                  n_copy: int) -> GaussianParams:
+    """params[dst[j]] = params[src[j]] for j < n_copy, on copies."""
+    s, d = src[:n_copy], dst[:n_copy]
+
+    def cp(a):
+        a = a.clone()
+        a[d] = a[s]
+        return a
+    return params.map(cp)
+
+
+def _zero_rows(params: GaussianParams, rows: torch.Tensor) -> GaussianParams:
+    """Multiply the rows ``rows`` by 0, as the JAX package does."""
+    def z(a):
+        return a * (~rows).to(a.dtype).reshape((-1,) + (1,) * (a.ndim - 1))
+    return params.map(z)
+
+
+def prune(state: GaussianState, prune_mask: torch.Tensor) -> GaussianState:
+    """Deactivate the pruned active slots and zero their parameters, moments
+    and statistics, so that densification reuses them clean."""
+    kill = prune_mask & state.active
+    return state.replace(
+        params=_zero_rows(state.params, kill),
+        adam=AdamState(_zero_rows(state.adam.mu, kill),
+                       _zero_rows(state.adam.nu, kill), state.adam.step),
+        active=state.active & ~kill,
+        max_radii2d=torch.where(kill, 0.0, state.max_radii2d),
+        grad_accum=torch.where(kill, 0.0, state.grad_accum),
+        denom=torch.where(kill, 0.0, state.denom))
+
+
+def _insert_copies(state: GaussianState, sel: torch.Tensor, edit_fn=None):
+    """Copy the selected rows into free slots (whose moments and statistics
+    are zero). ``edit_fn(params, src, dst, n_copy)`` may rewrite the copies.
+    Returns (state, dropped)."""
+    src, dst, n_copy, dropped = _slot_assignment(state.active, sel)
+    params = _scatter_copy(state.params, src, dst, n_copy)
+    if edit_fn is not None:
+        params = edit_fn(params, src, dst, n_copy)
+    active = state.active.clone()
+    active[dst[:n_copy]] = True
+    return state.replace(params=params, active=active), dropped
+
+
+def densify_and_clone(state: GaussianState, grads_norm: torch.Tensor,
+                      grad_threshold: float, percent_dense: float,
+                      scene_extent: float):
+    """Clone the small high-gradient Gaussians: exact copies with zero
+    moments. Returns (state, dropped)."""
+    max_scale = torch.amax(state.scaling, dim=-1)
+    sel = (state.active & (grads_norm >= grad_threshold)
+           & (max_scale <= percent_dense * scene_extent))
+    return _insert_copies(state, sel)
+
+
+def densify_and_split_along_maxscaling(
+        state: GaussianState, grads_norm: torch.Tensor, grad_threshold: float,
+        percent_dense: float, scene_extent: float,
+        box_mask: torch.Tensor | None = None, n_std: float = 2.0):
+    """VCR-GauS split: two children displaced by +-(n_std/3) max_scale along
+    the longest axis, whose scale is divided by 1.6. ``box_mask`` also
+    selects the large visible Gaussians inside the box. Child 1 overwrites
+    the parent slot (moments and statistics zeroed), child 2 takes a free
+    slot. Returns (state, dropped)."""
+    max_scale = torch.amax(state.scaling, dim=-1)
+    sel = (state.active & (grads_norm >= grad_threshold)
+           & (max_scale > percent_dense * scene_extent))
+    if box_mask is not None:
+        sel = sel | (state.active & box_mask)
+
+    dirs, max_scaling, axis = M.longest_axis_dir(state.scaling,
+                                                 state.params.quat)
+    offset = dirs * (n_std * max_scaling / 3.0)[:, None]
+    child_scale = M.set_axis_value(state.scaling, axis, max_scaling / 1.6)
+    child_log_scale = torch.log(torch.clamp_min(child_scale, 1e-12))
+
+    p = state.params
+    selc = sel[:, None]
+    p1 = dataclasses.replace(
+        p, xyz=torch.where(selc, p.xyz + offset, p.xyz),
+        log_scale=torch.where(selc, child_log_scale, p.log_scale))
+    st = state.replace(
+        params=p1,
+        adam=AdamState(_zero_rows(state.adam.mu, sel),
+                       _zero_rows(state.adam.nu, sel), state.adam.step),
+        max_radii2d=torch.where(sel, 0.0, state.max_radii2d),
+        grad_accum=torch.where(sel, 0.0, state.grad_accum),
+        denom=torch.where(sel, 0.0, state.denom))
+
+    def edit(params, src, dst, n_copy):
+        # the copy holds child 1 (parent + offset): child 2 is copy - 2 offset
+        xyz = params.xyz.clone()
+        xyz[dst[:n_copy]] += -2.0 * offset[src[:n_copy]]
+        return dataclasses.replace(params, xyz=xyz)
+
+    return _insert_copies(st, sel, edit)
+
+
+def densify_and_prune(state: GaussianState, grad_threshold: float,
+                      min_opacity: float, scene_extent: float,
+                      max_screen_size: float | None, percent_dense: float,
+                      box_mask: torch.Tensor | None = None):
+    """Clone and split from the accumulated gradients, then prune by
+    opacity, screen radius and world size, and restart the statistics.
+    Returns (state, dropped), the children that found no free slot."""
+    grads_norm = torch.where(
+        state.denom > 0, state.grad_accum / torch.clamp_min(state.denom, 1.0),
+        0.0)
+    state, d1 = densify_and_clone(state, grads_norm, grad_threshold,
+                                  percent_dense, scene_extent)
+    state, d2 = densify_and_split_along_maxscaling(
+        state, grads_norm, grad_threshold, percent_dense, scene_extent,
+        box_mask=box_mask)
+    prune_mask = state.opacity[:, 0] < min_opacity
+    if max_screen_size is not None:
+        big_vs = state.max_radii2d > max_screen_size
+        big_ws = torch.amax(state.scaling, dim=-1) > 0.1 * scene_extent
+        prune_mask = prune_mask | big_vs | big_ws
+    state = prune(state, prune_mask)
+    zero = torch.zeros_like(state.grad_accum)
+    return state.replace(grad_accum=zero, denom=zero.clone(),
+                         max_radii2d=zero.clone()), d1 + d2
+
+
+def prune_by_importance(state: GaussianState, imp_score: torch.Tensor,
+                        percent: float) -> GaussianState:
+    """LightGaussian prune, positional as in the JAX package: exactly
+    k = percent (n_active - 1) active Gaussians go (float32, truncated), the
+    lowest scores first, ties broken by slot index."""
+    score = torch.where(state.active, imp_score, torch.inf)
+    n_act = state.active.sum().to(torch.float32)
+    k = (torch.tensor(percent, dtype=torch.float32) * (n_act.cpu() - 1.0)
+         ).to(torch.int32)
+    order = torch.sort(score, stable=True).indices
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(state.capacity, device=order.device)
+    return prune(state, rank < int(k))
+
+
+def v_imp_score(state: GaussianState, imp_list: torch.Tensor,
+                v_pow: float) -> torch.Tensor:
+    """Volume-reweighted importance: imp (volume / kth)^v_pow, kth the
+    volume at rank int(0.9 n_active) in descending order over the active
+    slots."""
+    volume = torch.prod(state.scaling, dim=-1)
+    vol_act = torch.where(state.active, volume, -torch.inf)
+    n_act = state.active.sum().to(torch.float32)
+    idx = int((torch.tensor(0.9, dtype=torch.float32) * n_act.cpu()
+               ).to(torch.int32))
+    kth = torch.sort(vol_act, descending=True).values[
+        min(max(idx, 0), state.capacity - 1)]
+    return torch.pow(volume / kth, v_pow) * imp_list
+
+
+def reset_opacity(state: GaussianState) -> GaussianState:
+    """Clamp the opacity to <= 0.01 and zero its Adam moments."""
+    new_op = M.inverse_sigmoid(torch.clamp_max(state.opacity, 0.01))
+    zero = torch.zeros_like(new_op)
+    return state.replace(
+        params=dataclasses.replace(state.params, logit_opacity=new_op),
+        adam=AdamState(dataclasses.replace(state.adam.mu, logit_opacity=zero),
+                       dataclasses.replace(state.adam.nu,
+                                           logit_opacity=zero.clone()),
+                       state.adam.step))
+
+
+def oneup_sh_degree(state: GaussianState, max_sh_degree: int) -> GaussianState:
+    return state.replace(active_sh_degree=min(state.active_sh_degree + 1,
+                                              max_sh_degree))
+
+
+def expand_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Grow the padded capacity with zero rows (inactive)."""
+    extra = new_capacity - state.capacity
+    if extra <= 0:
+        raise ValueError(f"new capacity {new_capacity} is not above "
+                         f"{state.capacity}")
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((extra,) + tuple(a.shape[1:]))])
+
+    return GaussianState(
+        params=state.params.map(pad),
+        adam=AdamState(state.adam.mu.map(pad), state.adam.nu.map(pad),
+                       state.adam.step),
+        active=pad(state.active), max_radii2d=pad(state.max_radii2d),
+        grad_accum=pad(state.grad_accum), denom=pad(state.denom),
+        active_sh_degree=state.active_sh_degree)

@@ -23,7 +23,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 # kernel library name -> source file under csrc/
 SOURCES = {"rasterize_fwd": "rasterize_fwd.cu",
-           "rasterize_bwd": "rasterize_bwd.cu"}
+           "rasterize_bwd": "rasterize_bwd.cu",
+           "rasterize_stats": "rasterize_stats.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",

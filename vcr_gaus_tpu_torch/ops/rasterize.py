@@ -16,6 +16,12 @@ T >= 1e-4, and a backward over the batches the forward composited).
 features and, as the gradient of the zero ``dummy`` input, the |d mean2d|
 densification stream. Binning is not differentiated: mean2d, radius and
 depth_z enter it detached, as at the JAX package's custom-VJP boundary.
+
+``rasterize_stats`` wraps ``csrc/rasterize_stats.cu``, the port of the TPU
+kernel ``rasterize_stats`` fused with its per-Gaussian scatter: per
+Gaussian, the live in-image pixels its entries hit and the sum of their
+blending weights. Its plain version is ``composite_tiles_stats_torch``;
+``rasterize_entry_stats`` bins and calls it.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from .rasterize_ref import ALPHA_CAP, ALPHA_EPS, out_channels
 
 T_EPS = 1e-4
 BATCH = 256              # entries per compositing round (the TPU chunk G)
+GROUP = 256              # tiles per round of a plain version's loop
 TILE = B.TILE
 MAX_CH_SEM = 8           # the kernel is instantiated for 0..8 channels
 DEPTH_MODES = ("traditional", "intersection")
@@ -80,10 +87,12 @@ class _Pairs(NamedTuple):
 
 
 def _batch_pairs(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
-                 T: torch.Tensor, valid: torch.Tensor, rays) -> _Pairs:
+                 T: torch.Tensor, valid: torch.Tensor, rays,
+                 pvalid: torch.Tensor | None = None) -> _Pairs:
     """The kernels' per-pair math, in their order, for one batch: f (S, G, F)
     feature rows of the selected tiles' entries, px, py, T (S, P) of their
-    pixels, valid (S, G), rays None or the selected tiles' rays."""
+    pixels, valid (S, G), rays None or the selected tiles' rays, pvalid
+    None or the (S, P) mask of the pixels allowed to composite."""
     def col(c):
         return f[:, None, :, c]                                   # (S, 1, G)
 
@@ -93,6 +102,8 @@ def _batch_pairs(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
              - col(PF.F_CONIC_B) * dx * dy)
     alpha_raw = col(PF.F_OPACITY) * torch.exp(power)
     live = (power <= 0.0) & (alpha_raw >= ALPHA_EPS) & valid[:, None, :]
+    if pvalid is not None:
+        live = live & pvalid[:, :, None]
     alpha = torch.where(live, torch.clamp_max(alpha_raw, ALPHA_CAP), 0.0)
     cum = torch.cumprod(1.0 - alpha, dim=2)
     t_excl = T[:, :, None] * torch.cat([torch.ones_like(cum[..., :1]),
@@ -117,7 +128,7 @@ def composite_tiles_torch(feats: torch.Tensor, sorted_gid: torch.Tensor,
                           cam: torch.Tensor, n_tx: int, ch_sem: int,
                           depth_mode: str,
                           tile_ids: torch.Tensor | None = None,
-                          group: int = 256):
+                          group: int = GROUP):
     """The plain version of the compositing kernel, for the tiles
     ``tile_ids`` (default: all of them). Returns (out (T_sel, 9+S, 256) in
     row-major pixel order within each tile, batches_done (T_sel,) int32).
@@ -200,7 +211,7 @@ def composite_tiles_backward_torch(feats: torch.Tensor,
                                    g_img: torch.Tensor, ch_sem: int,
                                    depth_mode: str,
                                    tile_ids: torch.Tensor | None = None,
-                                   group: int = 256) -> torch.Tensor:
+                                   group: int = GROUP) -> torch.Tensor:
     """The plain version of the backward kernel: the (N, 16+S) gradient of
     sum(g_img * img) over the packed features (columns 0..13+S) and the
     |d mean2d| stream (the last two), from the tiles ``tile_ids`` (default:
@@ -300,21 +311,13 @@ def _check(name, t, dtype):
                          f"{t.dtype} (contiguous={t.is_contiguous()})")
 
 
-def _check_inputs(feats, binn, cam, width, height, ch_sem, depth_mode,
-                  **more):
-    """Shapes, types, contiguity and devices the kernels take; ``more``
-    names further (tensor, dtype) pairs."""
-    if depth_mode not in DEPTH_MODES:
-        raise ValueError(f"depth_mode must be one of {DEPTH_MODES}")
-    if not 0 <= ch_sem <= MAX_CH_SEM:
-        raise ValueError(f"ch_sem must be 0..{MAX_CH_SEM}, got {ch_sem}")
-    if feats.ndim != 2 or feats.shape[1] != PF.feature_dim(ch_sem):
-        raise ValueError(f"feats must be (N, {PF.feature_dim(ch_sem)}), got "
-                         f"{tuple(feats.shape)}")
+def _check_binned(feats, binn, width, height, **more):
+    """The binning's size, and the types, contiguity and devices of feats,
+    the binning and ``more`` (further name=(tensor, dtype) pairs)."""
     n_tx, n_ty = B.tile_grid(width, height)
-    if binn.tile_counts.shape[0] != n_tx * n_ty or cam.shape != (8,):
-        raise ValueError("binning or camera does not match the image size")
-    tensors = {"feats": (feats, torch.float32), "cam": (cam, torch.float32),
+    if binn.tile_counts.shape[0] != n_tx * n_ty:
+        raise ValueError("binning does not match the image size")
+    tensors = {"feats": (feats, torch.float32),
                **{k: (getattr(binn, k), torch.int32)
                   for k in ("sorted_gid", "tile_starts", "tile_counts")},
                **more}
@@ -325,6 +328,23 @@ def _check_inputs(feats, binn, cam, width, height, ch_sem, depth_mode,
         _check(name, t, dtype)
     if feats.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {feats.device}")
+
+
+def _check_inputs(feats, binn, cam, width, height, ch_sem, depth_mode,
+                  **more):
+    """Shapes, types, contiguity and devices the compositing kernels take;
+    ``more`` names further (tensor, dtype) pairs."""
+    if depth_mode not in DEPTH_MODES:
+        raise ValueError(f"depth_mode must be one of {DEPTH_MODES}")
+    if not 0 <= ch_sem <= MAX_CH_SEM:
+        raise ValueError(f"ch_sem must be 0..{MAX_CH_SEM}, got {ch_sem}")
+    if feats.ndim != 2 or feats.shape[1] != PF.feature_dim(ch_sem):
+        raise ValueError(f"feats must be (N, {PF.feature_dim(ch_sem)}), got "
+                         f"{tuple(feats.shape)}")
+    if cam.shape != (8,):
+        raise ValueError(f"cam must be (8,), got {tuple(cam.shape)}")
+    _check_binned(feats, binn, width, height, cam=(cam, torch.float32),
+                  **more)
 
 
 def rasterize_forward(feats: torch.Tensor, binn: B.Binning, cam: torch.Tensor,
@@ -462,3 +482,102 @@ def rasterize_image(feats: torch.Tensor, dummy: torch.Tensor,
         img, _ = _Composite.apply(feats, dummy, binn, cam, width, height,
                                   ch_sem, depth_mode)
     return img, binn
+
+
+def composite_tiles_stats_torch(feats: torch.Tensor, sorted_gid: torch.Tensor,
+                                tile_starts: torch.Tensor,
+                                tile_counts: torch.Tensor, n_tx: int,
+                                width: int, height: int):
+    """The plain version of the stats kernel, over every tile, ``GROUP``
+    tiles at a time. Returns (stats (N, 2): per Gaussian the live in-image
+    pairs of its entries and the sum of their blending weights, batches (T,)
+    int32: the 256-entry batches each tile walked). Pixels outside the image
+    never composite and keep T = 1, so a ragged tile never stops early."""
+    dev = feats.device
+    n_tiles = tile_counts.shape[0]
+    stats = torch.zeros((feats.shape[0], 2), dtype=torch.float32, device=dev)
+    batches = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    lane = torch.arange(BATCH, device=dev)
+    gid_all = sorted_gid.to(torch.int64)
+
+    for g0 in range(0, n_tiles, GROUP):
+        ids = torch.arange(g0, min(g0 + GROUP, n_tiles), device=dev)
+        ng = ids.shape[0]
+        px, py, _ = _tile_geometry(ids, n_tx, None, "traditional")
+        pvalid = (px < width) & (py < height)
+        start = tile_starts[ids].to(torch.int64)
+        count = tile_counts[ids].to(torch.int64)
+        T = torch.ones((ng, TILE * TILE), dtype=torch.float32, device=dev)
+        done = torch.zeros(ng, dtype=torch.int32, device=dev)
+        nbatch = int((count.max() + BATCH - 1) // BATCH) if ng else 0
+        for k in range(nbatch):
+            run = (k * BATCH < count) & (T.amax(dim=1) >= T_EPS)
+            sel = torch.nonzero(run).squeeze(1)
+            if sel.numel() == 0:
+                break
+            pos = k * BATCH + lane[None]                          # (S, G)
+            valid = pos < count[sel, None]
+            gid = gid_all[torch.where(valid, start[sel, None] + pos, 0)]
+            p = _batch_pairs(feats[gid], px[sel], py[sel], T[sel], valid,
+                             None, pvalid[sel])
+            per_entry = torch.stack([p.live.sum(1).to(torch.float32),
+                                     p.w.sum(1)], dim=2)          # (S, G, 2)
+            stats.index_add_(0, gid[valid], per_entry[valid])
+            T[sel] = T[sel] * p.cum[..., -1]
+            done[sel] += 1
+        batches[g0:g0 + ng] = done
+    return stats, batches
+
+
+def rasterize_stats(feats: torch.Tensor, binn: B.Binning, width: int,
+                    height: int) -> torch.Tensor:
+    """Per-Gaussian (count, importance) of the binned entries over one view:
+    (N, 2) f32. feats (N, 14+S) f32 in the packed layout (only the mean,
+    conic and opacity columns are read)."""
+    if feats.ndim != 2 or feats.shape[1] < PF.F_DEPTH_Z:
+        raise ValueError(f"feats must be (N, >= {PF.F_DEPTH_Z}), got "
+                         f"{tuple(feats.shape)}")
+    _check_binned(feats, binn, width, height)
+    n_tx, n_ty = B.tile_grid(width, height)
+    dev = feats.device
+    if dev.type == "cpu":
+        return composite_tiles_stats_torch(
+            feats, binn.sorted_gid, binn.tile_starts, binn.tile_counts, n_tx,
+            width, height)[0]
+
+    stats = torch.zeros((feats.shape[0], 2), dtype=torch.float32, device=dev)
+    kernel = _stats_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = kernel(feats.data_ptr(), feats.shape[1],
+                     binn.sorted_gid.data_ptr(), binn.tile_starts.data_ptr(),
+                     binn.tile_counts.data_ptr(), n_tx, n_ty, width, height,
+                     stats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rasterize_stats launch failed: cudaError {err}")
+    LAUNCHES["rasterize_stats"] += 1
+    return stats
+
+
+@functools.cache
+def _stats_kernel():
+    fn = cuda_build.load("rasterize_stats").vcr_rasterize_stats
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, p, p, p, i, i, i, i, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rasterize_entry_stats(feats: torch.Tensor, mean2d: torch.Tensor,
+                          radius: torch.Tensor, depth_z: torch.Tensor,
+                          width: int, height: int,
+                          extents: torch.Tensor | None = None):
+    """Bin, then the stats kernel: per Gaussian (count (N,), importance
+    (N,)), the f_count render modes of the reference collapsed into one
+    kernel."""
+    with record_function("render.binning"):
+        binn = B.bin_gaussians(mean2d, radius, depth_z, width, height,
+                               extents=extents)
+    with record_function("render.stats"):
+        stats = rasterize_stats(feats, binn, width, height)
+    return stats[:, 0], stats[:, 1]

@@ -2,7 +2,8 @@
 -> shortest-axis normals flipped along the view -> EWA projection -> tile
 binning -> the compositing kernel -> channel post-processing (normalized
 normal, depth mask, depth->normal estimate, depth_var/distortion from the
-moments)."""
+moments). ``render_stats`` projects and bins the same way and runs the
+stats kernel instead: per-Gaussian pixel hits and importance."""
 
 from __future__ import annotations
 
@@ -109,3 +110,22 @@ def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
         if cfg.ch_sem:
             out["render_sem"] = img[9:9 + cfg.ch_sem]
     return out
+
+
+@torch.no_grad()
+def render_stats(state: GaussianState, cam: CameraArrays, cfg: RenderConfig):
+    """Per-Gaussian (pixel hit count (C,), blending-weight importance (C,))
+    over one view: projection with zero colour and no normal, inactive slots
+    culled, binning, the stats kernel."""
+    with record_function("render.project"):
+        p = state.params
+        opacity = state.opacity[:, 0]
+        proj = PF.project_gaussians(
+            p.xyz, state.scaling, p.quat, cam.viewmatrix, cam.projmatrix,
+            cam.tanfov[0], cam.tanfov[1], cfg.width, cfg.height,
+            cfg.scale_modifier, opacity=opacity)
+        radius = torch.where(state.active, proj.radius, 0)
+        rgb = torch.zeros_like(p.xyz)
+        feats = PF.pack_features(proj, opacity, rgb, None, None, 0)
+    return R.rasterize_entry_stats(feats, proj.mean2d, radius, proj.depth_z,
+                                   cfg.width, cfg.height, extents=proj.ext)

@@ -4,8 +4,12 @@
       --model.source_path=data/dtu/scan24 --logdir=output/dtu/scan24 \\
       [--device cuda|cpu] [--optim.iterations=N] [other dotted overrides]
 
-Trains for ``optim.iterations``, saves the PLY beside the saved
-``config.yaml`` and prints the final PSNR/L1 over the train split.
+Runs the recipe's schedule to ``optim.iterations`` (densify, opacity
+resets, the LightGaussian prune, test sweeps, PLY and checkpoint saves, the
+final importance dump), saves the PLY beside the saved ``config.yaml`` and
+prints the final PSNR/L1 over the train split.
+``--train.start_checkpoint=<logdir>/chkpnt<it>.npz`` resumes from a
+checkpoint written by either package, at the iteration after it.
 """
 
 from __future__ import annotations

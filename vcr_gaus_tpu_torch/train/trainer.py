@@ -4,23 +4,26 @@ One step renders a camera, assembles the recipe's losses, takes the
 gradient of the total over the parameters and the densify dummy, masks it
 to the active slots, runs Adam with the per-group learning rates and adds
 the densification statistics. ``Trainer`` loads the scene, initializes the
-state from its point cloud and runs steps in the JAX package's camera
-order.
+state from its point cloud (or a checkpoint) and runs the schedule: steps in
+the JAX package's camera order, then the host actions of each iteration
+(densify with the box-guided split, opacity reset, capacity growth, the
+LightGaussian prune), the test sweeps with their panels, the PLY and
+checkpoint saves and the final importance dump. The stats sweeps behind the
+box mask and the prune run the stats kernel once per view.
 
-This slice runs the iterations before the first host action of the
-schedule (with the DTU recipe, the first 599: the first densify follows
-iteration 600). Densification, opacity
-resets, pruning, mid-run test sweeps, checkpoints and the final importance
-dump come with slice C: ``train`` raises NotImplementedError before an
-iteration that would run one. The learning-rate schedule, the SH degree
-warmup and the loss gates follow the iteration as in the JAX package. The
-JAX package's entry budget, overflow handling, supersteps, binning
-lookahead and camera cache exist for its static shapes on the TPU and have
-no counterpart here.
+The random box cameras (``densify_large.sample_cams.random: true``) come
+with a later slice of the port: ``train`` raises NotImplementedError before
+an iteration that would densify with them. The learning-rate schedule, the
+SH degree warmup and the loss gates follow the iteration as in the JAX
+package. The JAX package's entry budget, overflow handling, supersteps
+(``tpu.steps_per_call``), binning lookahead and camera cache exist for its
+static shapes on the TPU and have no counterpart here; the camera order
+is that of its single-step path (``tpu.steps_per_call: 1``).
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import random
@@ -30,14 +33,16 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..compat.arguments import write_cfg_args
 from ..data.cameras import CameraArrays
-from ..data.scene import load_scene_info
+from ..data.scene import camera_to_json, load_scene_info
 from ..models import gaussians as GM
 from ..models import ply_io
-from ..render.renderer import RenderConfig, render
+from ..render.renderer import RenderConfig, render, render_stats
 from ..utils import math as M
 from ..utils.device import resolve_device
 from . import losses as L
+from . import visualization as VZ
 
 # losses this slice computes, and the slice that brings each other one
 PORTED_LOSSES = ("l1", "ssim", "l1_scale", "mono_normal", "depth_normal",
@@ -156,14 +161,20 @@ def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
     return step
 
 
+# the JAX package's side-network state, saved as None in checkpoints
+NET_FIELDS = ("app_embeddings", "app_params", "app_opt", "cls_params",
+              "cls_opt")
+
+
 def _auto_capacity(n_init: int) -> int:
     """The next power of two above 8x the init count, at least 2^16."""
     return max(1 << 16, 1 << math.ceil(math.log2(max(n_init, 1) * 8)))
 
 
 class Trainer:
-    """Loads the scene, builds the initial state and runs training steps on
-    ``device``."""
+    """Loads the scene, builds the initial state (or resumes from
+    ``train.start_checkpoint``) and runs the recipe's schedule on
+    ``device``: steps, host actions, sweeps and saves."""
 
     def __init__(self, cfg, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -211,8 +222,24 @@ class Trainer:
         self.bg = np.array([1, 1, 1] if cfg.model.white_background
                            else [0, 0, 0], np.float32)
         self.rng = random.Random(cfg.seed)
+        self._next_idx: int | None = None   # the one-step camera lookahead
+        self._pending_dropped: int | None = None
         self.history: list[dict] = []
+        self.test_history: list[dict] = []
+        # one record per host action: iteration, action, population before
+        # and after
+        self.host_log: list[dict] = []
         os.makedirs(cfg.logdir, exist_ok=True)
+        # the run metadata downstream tools reload
+        with open(os.path.join(cfg.logdir, "cameras.json"), "w") as f:
+            json.dump([camera_to_json(i, c) for i, c in enumerate(
+                info.train_cameras + info.test_cameras)], f)
+        write_cfg_args(cfg, cfg.logdir)
+        start_ckpt = getattr(cfg.train, "start_checkpoint", None)
+        if start_ckpt:
+            self.restore_checkpoint(start_ckpt)
+            print(f"resumed from {start_ckpt} at iteration {self.iteration}",
+                  flush=True)
 
     # -- schedule -----------------------------------------------------------
 
@@ -245,11 +272,21 @@ class Trainer:
         return self.viewpoint_stack.pop(
             self.rng.randint(0, len(self.viewpoint_stack) - 1))
 
+    def _pick_camera_index(self) -> int:
+        """This step's camera. The next one's index is drawn now, before
+        the step and its host actions, as the JAX package's one-slot camera
+        prefetch draws it; the densify's draws from the same generator
+        follow it."""
+        if self._next_idx is None:
+            self._next_idx = self._next_camera_index()
+        idx, self._next_idx = self._next_idx, self._next_camera_index()
+        return idx
+
     def host_actions(self, j: int) -> list[str]:
-        """The host actions of the schedule after iteration j that this
-        slice does not run (the JAX package's _is_action_iter, less the
-        PLY save)."""
+        """The host actions the schedule runs after iteration j (the JAX
+        package's _is_action_iter names them all)."""
         o, t = self.cfg.optim, self.cfg.train
+        final = j == int(o.iterations)
         acts = []
         if j < o.densify_until_iter:
             if j > o.densify_from_iter and j % o.densification_interval == 0:
@@ -260,53 +297,72 @@ class Trainer:
                 acts.append("reset opacity")
         if j in list(o.prune.iterations):
             acts.append("prune")
-        if j in list(t.test_iterations):
+        if final or j in list(t.test_iterations):
             acts.append("test")
+        if final or j in list(t.save_iterations):
+            acts.append("save")
         if j in list(t.checkpoint_iterations):
             acts.append("checkpoint")
-        if j == int(o.iterations) and list(o.prune.iterations):
+        if final and list(o.prune.iterations):
             acts.append("dump importance")
         return acts
+
+    def _box_cameras(self):
+        """The densify_large settings when the box mask is on, else None."""
+        dl = getattr(self.cfg.optim, "densify_large", None)
+        if not dl or float(getattr(dl, "percent_dense", 0) or 0) <= 0:
+            return None
+        if int(getattr(dl.sample_cams, "num", 0)) <= 0:
+            return None
+        return dl
 
     # -- loop ---------------------------------------------------------------
 
     def train_step(self):
         self.iteration += 1
-        cam = self.scene.train_cameras[self._next_camera_index()].arrays(
+        cam = self.scene.train_cameras[self._pick_camera_index()].arrays(
             self.device)
         bg = (np.random.default_rng(self.iteration).random(3).astype(
             np.float32) if self.cfg.optim.random_background else self.bg)
         self.state, losses, aux = self.step_fn(
             self.state, cam, torch.as_tensor(bg, device=self.device),
             self._lr_xyz(), self._sh_degree(), self._gates())
+        self._post_step_actions()
         return losses, aux
 
     def train(self, max_iters: int | None = None, log_every: int = 50):
-        """Run iterations up to ``max_iters`` (default: the recipe's).
-        Raises NotImplementedError before an iteration whose host actions
-        this slice does not run. Returns the history: one record of floats
-        per iteration."""
+        """Run iterations up to ``max_iters`` (default: the recipe's) with
+        their host actions, sweeps and saves. Returns the history: one
+        record of floats per iteration."""
         max_iters = int(max_iters or self.cfg.optim.iterations)
         final_it = int(self.cfg.optim.iterations)
+        t = self.cfg.train
         pending = []
         while self.iteration < max_iters:
-            acts = self.host_actions(self.iteration + 1)
-            if acts:
+            dl = self._box_cameras()
+            if (dl is not None and getattr(dl.sample_cams, "random", True)
+                    and "densify" in self.host_actions(self.iteration + 1)):
                 self._flush(pending, max_iters)
                 raise NotImplementedError(
-                    f"iteration {self.iteration + 1} would "
-                    f"{' and '.join(acts)}: these host actions come with "
-                    "slice C of the port")
+                    f"iteration {self.iteration + 1} would densify with "
+                    "random box cameras (densify_large.sample_cams.random): "
+                    "they come with a later slice of the port")
             losses, _ = self.train_step()
             pending.append((self.iteration, losses,
                             self.state.active.sum()))
             it = self.iteration
             if it % log_every == 0 or it == max_iters:
                 self._flush(pending, max_iters)
-            if it == final_it or it in list(self.cfg.train.test_iterations):
+            final = it == final_it
+            if final or it in list(t.test_iterations):
+                self._flush(pending, max_iters)
                 self.run_test()
-            if it == final_it or it in list(self.cfg.train.save_iterations):
+            if final or it in list(t.save_iterations):
                 self.save()
+            if it in list(t.checkpoint_iterations):
+                self.save_checkpoint()
+            if final and list(self.cfg.optim.prune.iterations):
+                self.save_importance()
         self._flush(pending, max_iters)
         return self.history
 
@@ -328,17 +384,147 @@ class Trainer:
         print(f"[{rec['iter']}/{max_iters}] loss={rec['total']:.4f} "
               f"n_active={rec['n_active']}", flush=True)
 
+    # -- host actions -------------------------------------------------------
+
+    def _post_step_actions(self) -> None:
+        o = self.cfg.optim
+        it = self.iteration
+        if it < o.densify_until_iter:
+            if it > o.densify_from_iter and it % o.densification_interval == 0:
+                self.densify(20 if it > o.opacity_reset_interval else None)
+            if it % o.opacity_reset_interval == 0 or (
+                    self.cfg.model.white_background
+                    and it == o.densify_from_iter):
+                with record_function("train.reset_opacity"):
+                    self.state = GM.reset_opacity(self.state)
+                self._log_action("reset opacity")
+        if it in list(o.prune.iterations):
+            self.light_gaussian_prune(list(o.prune.iterations).index(it))
+
+    def _log_action(self, action: str, n_before: int | None = None,
+                    **more) -> None:
+        n = self.state.num_active
+        self.host_log.append({"iter": self.iteration, "action": action,
+                              "n_before": n if n_before is None else n_before,
+                              "n_after": n, **more})
+
+    def densify(self, max_screen_size: float | None) -> None:
+        """Clone, split (with the box mask) and prune, then grow the
+        capacity if the PREVIOUS densify dropped children, as the JAX
+        package does: it reads each densify's drop count one event late and
+        discards the count in flight when it grows, so both packages grow
+        at the same iterations."""
+        o = self.cfg.optim
+        n_before = self.state.num_active
+        with record_function("train.densify"):
+            box_mask = self._box_densify_mask()
+            prev = self._pending_dropped
+            self.state, dropped = GM.densify_and_prune(
+                self.state, grad_threshold=float(o.densify_grad_threshold),
+                min_opacity=0.005, scene_extent=self.extent,
+                max_screen_size=max_screen_size,
+                percent_dense=float(o.percent_dense), box_mask=box_mask)
+            self._pending_dropped = dropped
+            if prev:
+                self._grow_capacity(prev)
+                self._pending_dropped = None
+        self._log_action("densify", n_before, dropped=dropped,
+                         capacity=self.state.capacity)
+
+    def _stats_sweep(self, cams: list[CameraArrays]):
+        """Per-Gaussian (count, importance) summed over the views."""
+        count = torch.zeros(self.state.capacity, device=self.device)
+        imp = torch.zeros_like(count)
+        with record_function("train.stats_sweep"):
+            for cam in cams:
+                c, i = render_stats(self.state, cam, self.rcfg)
+                count += c
+                imp += i
+        return count, imp
+
+    def _full_stats_cams(self) -> list[CameraArrays]:
+        """Every train and test view, geometry only."""
+        return [c.arrays(self.device, pixels=False) for c in
+                list(self.scene.train_cameras) + list(self.scene.test_cameras)]
+
+    def get_visi_mask_acc(self, n: int) -> torch.Tensor:
+        """The active Gaussians inside the box that n training views drawn
+        from the trainer's generator see: hit counts of the stats sweep."""
+        if getattr(self.cfg.optim.densify_large.sample_cams, "random", True):
+            raise NotImplementedError(
+                "the random box cameras (densify_large.sample_cams.random) "
+                "come with a later slice of the port")
+        cams = self.scene.train_cameras
+        views = [cams[self.rng.randint(0, len(cams) - 1)].arrays(
+            self.device, pixels=False) for _ in range(n)]
+        count, _ = self._stats_sweep(views)
+        inside, _ = M.get_inside_normalized(self.state.params.xyz, self.trans,
+                                            self.scale)
+        return (count > 0) & inside
+
+    def _box_densify_mask(self) -> torch.Tensor | None:
+        """Large visible Gaussians inside the box, force-split whatever
+        their gradient (the densify_large gate)."""
+        dl = self._box_cameras()
+        if dl is None:
+            return None
+        visi = self.get_visi_mask_acc(int(dl.sample_cams.num))
+        large = torch.amax(self.state.scaling, dim=-1) > (
+            float(dl.percent_dense) * self.extent)
+        return visi & large
+
+    def light_gaussian_prune(self, prune_round: int) -> None:
+        """Importance over every train and test view, volume-reweighted;
+        the lowest decay^round x percent of the population goes."""
+        o = self.cfg.optim.prune
+        n_before = self.state.num_active
+        with record_function("train.prune"):
+            _, imp = self._stats_sweep(self._full_stats_cams())
+            v = GM.v_imp_score(self.state, imp, float(o.v_pow))
+            self.state = GM.prune_by_importance(
+                self.state, v, (o.decay ** prune_round) * o.percent)
+        self._log_action("prune", n_before)
+
+    def _grow_capacity(self, dropped: int) -> None:
+        """Densify dropped children: double the capacity, bounded by
+        ``model.max_mem`` GiB of parameters and moments."""
+        cap = self.state.capacity
+        bytes_per = 4 * 3 * (3 + 3 + 3 * ((self.cfg.model.sh_degree + 1) ** 2
+                                          - 1) + 3 + 4 + 1 + self.rcfg.ch_sem
+                             + 3)
+        new_cap = cap * 2
+        if new_cap * bytes_per > self.cfg.model.max_mem * (1 << 30):
+            print(f"[capacity] at max_mem cap ({cap}); densify drops "
+                  f"{dropped} splats", flush=True)
+            return
+        print(f"[capacity] {cap} -> {new_cap} (densify dropped {dropped})",
+              flush=True)
+        self.state = GM.expand_capacity(self.state, new_cap)
+
     # -- outputs ------------------------------------------------------------
 
     def run_test(self) -> dict:
-        """PSNR/L1 over the train and test splits. The image panels and
-        metric writers of the JAX sweep are not ported."""
-        res = {"train": self.evaluate()}
+        """PSNR/L1 over the train and test splits, each capped at
+        ``tpu.eval_max_cams`` views (0 = all), and the panels of the first
+        train view under ``<logdir>/vis``."""
+        cap = int(getattr(self.cfg.tpu, "eval_max_cams", 0) or 0)
+        res = {"train": self.evaluate(max_cams=cap)}
         if self.scene.test_cameras:
-            res["test"] = self.evaluate(self.scene.test_cameras)
+            res["test"] = self.evaluate(self.scene.test_cameras, max_cams=cap)
+        cam = self.scene.train_cameras[0].arrays(self.device)
+        with torch.no_grad():
+            out = render(self.state, cam, self.rcfg,
+                         torch.as_tensor(self.bg, device=self.device),
+                         self._sh_degree(), scene_extent=self.extent)
+        host = {k: out[k].cpu().numpy() for k in
+                ("render", "depth", "alpha", "normal", "est_normal")}
+        VZ.save_panels(os.path.join(self.cfg.logdir, "vis"),
+                       f"iter_{self.iteration:06d}", host,
+                       cam.image.cpu().numpy())
         print(f"[ITER {self.iteration}] " + "  ".join(
             f"{k}: psnr={v['psnr']:.2f} l1={v['l1']:.4f}"
             for k, v in res.items()), flush=True)
+        self.test_history.append({"iter": self.iteration, **res})
         return res
 
     @torch.no_grad()
@@ -362,9 +548,45 @@ class Trainer:
         return {"psnr": float(np.mean(psnr)), "l1": float(np.mean(l1))}
 
     def save(self) -> str:
-        """The PLY of the active slots at
-        ``<logdir>/point_cloud/iteration_<it>/point_cloud.ply``."""
-        path = os.path.join(self.cfg.logdir, "point_cloud",
-                            f"iteration_{self.iteration}", "point_cloud.ply")
+        """``<logdir>/point_cloud/iteration_<it>/``: the PLY of the active
+        slots, the PLY of those inside the box with their normals, and the
+        .splat export when ``train.save_splat``. Returns the PLY's path."""
+        out = os.path.join(self.cfg.logdir, "point_cloud",
+                           f"iteration_{self.iteration}")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, "point_cloud.ply")
         ply_io.save_gaussian_ply(self.state, path)
+        inside, _ = M.get_inside_normalized(self.state.params.xyz, self.trans,
+                                            self.scale)
+        ply_io.save_inside_ply(self.state,
+                               os.path.join(out, "point_cloud_inside.ply"),
+                               inside.cpu().numpy())
+        if bool(getattr(self.cfg.train, "save_splat", False)):
+            ply_io.save_splat(self.state, os.path.join(out, "pcd.splat"))
         return path
+
+    def save_importance(self) -> str:
+        """The final volume-reweighted importance over every train and test
+        view, ``<logdir>/imp_score.npz``."""
+        _, imp = self._stats_sweep(self._full_stats_cams())
+        v = GM.v_imp_score(self.state, imp, float(self.cfg.optim.prune.v_pow))
+        path = os.path.join(self.cfg.logdir, "imp_score.npz")
+        np.savez(path, v.cpu().numpy())
+        return path
+
+    def save_checkpoint(self) -> str:
+        """``<logdir>/chkpnt<it>.npz``, readable by either package (the side
+        networks, which the port does not have, are stored as None)."""
+        path = os.path.join(self.cfg.logdir, f"chkpnt{self.iteration}.npz")
+        ply_io.save_checkpoint(path, self.state, self.iteration,
+                               extra={"net": dict.fromkeys(NET_FIELDS)})
+        return path
+
+    def restore_checkpoint(self, path: str) -> None:
+        """Resume from a checkpoint of either package."""
+        state, it, extra = ply_io.load_checkpoint(path, self.device)
+        if any(v is not None for v in (extra.get("net") or {}).values()):
+            raise NotImplementedError(
+                "the checkpoint holds side networks (appearance, semantic "
+                "classifier): they come with slice E of the port")
+        self.state, self.iteration = state, it

@@ -84,3 +84,20 @@ def shortest_axis_normal(scale: torch.Tensor, quat: torch.Tensor):
     axis = torch.argmin(scale, dim=-1)
     idx = axis[:, None, None].expand(-1, 3, 1)
     return torch.gather(R, 2, idx)[..., 0]
+
+
+def longest_axis_dir(scale: torch.Tensor, quat: torch.Tensor):
+    """(direction, magnitude, index) of the largest scale axis (first one on
+    ties, as jnp.argmax)."""
+    R = quat_to_rotmat(quat)
+    axis = torch.argmax(scale, dim=-1)
+    max_scaling = torch.gather(scale, 1, axis[:, None])[:, 0]
+    dirs = torch.gather(R, 2, axis[:, None, None].expand(-1, 3, 1))[..., 0]
+    return dirs, max_scaling, axis
+
+
+def set_axis_value(arr: torch.Tensor, axis_idx: torch.Tensor,
+                   value: torch.Tensor) -> torch.Tensor:
+    """arr[i, axis_idx[i]] = value[i] for (N, 3) arrays, functionally."""
+    onehot = torch.nn.functional.one_hot(axis_idx, arr.shape[-1]).to(arr.dtype)
+    return arr * (1 - onehot) + onehot * value[..., None]
