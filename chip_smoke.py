@@ -43,6 +43,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              as it is and at opacity 0.1, each with the share of its pairs
              that is live and the Gaussians' live areas that explain it;
              the host time of one densify and one prune;
+  6. microprobe  the forward-loop microprobe (K4): every variant against its
+             plain version at 8 tiles x 6 chunks, each channel at atol 2e-4
+             times its own max|value| and rtol 1e-3; `full` again on 64
+             random tiles of the protocol shape (1900 tiles x 6 chunks of
+             256 entries); then vcr_gaus_tpu_torch.tools.kernel_microprobe's
+             main at the protocol shape, every variant, which prints one
+             line per variant (us per chunk, live shares, bound, x bound);
+             the plain version's time for `full` at the protocol shape;
 then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of vcr_gaus_tpu.
 """
@@ -93,6 +101,9 @@ OPS_BWD_LIVE, OPS_BWD_LIVE_SEM, OPS_BWD_LIVE_INTERSECT = 83, 5, 18
 OPS_STATS_LIVE = 6
 # host_loop: stats launch of the run -> the densify view it is the first of
 DENSIFY_CAPTURES = {0: "densify_20", 30: "densify_30"}
+# K4 against its plain version, per channel: atol 2e-4 max|value|, rtol
+# 1e-3 (the no_exp variants reach ~1e8)
+PROBE = dict(atol=2e-4, rtol=1e-3)
 BWD = dict(rtol=2e-3)              # and atol 2e-3 max|g| per column group
 BWD_SATURATED = dict(rtol=5e-2)    # tests/test_rasterize.py:432
 # bench.py's dtu_full weights: the DTU recipe with every gate open
@@ -1225,6 +1236,86 @@ def stats_kernel_numbers(feats, binn, w, h, timing_iters) -> dict:
                 imp_max_abs_err=float((got[:, 1] - want[:, 1]).abs().max()))
 
 
+def compare_probe(got, want) -> list[list[float]]:
+    """K4's (tiles, 1024, 10) output against its plain version's, each
+    channel at atol 2e-4 times its own max|want| and rtol 1e-3: the
+    channels differ by orders of magnitude (a clamped depth denominator
+    makes channels 2 and 3 large). Returns [largest absolute error,
+    max|want|] per channel."""
+    import torch
+    if got.shape != want.shape or want.shape[-1] != 10:
+        raise AssertionError(f"probe shapes {tuple(got.shape)}, "
+                             f"{tuple(want.shape)}")
+    out = []
+    for c in range(want.shape[-1]):
+        g, w = got[..., c], want[..., c]
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, atol=PROBE["atol"] * scale,
+                                   rtol=PROBE["rtol"],
+                                   msg=lambda m, c=c: f"channel {c}: {m}")
+        out.append([float((g - w).abs().max()), scale])
+    return out
+
+
+def phase_microprobe(device, protocol=None, small_tiles=8,
+                     check_tiles=64) -> dict:
+    """Phase 6; returns K4's numbers for the kernel table. ``protocol``
+    (tiles, chunks) defaults to the script's protocol shape."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import microprobe as M
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.tools import kernel_microprobe as KM
+
+    n_tiles, chunks = protocol or (M.N_TILES, M.CHUNKS)
+    torch.cuda.empty_cache()
+    small = [torch.from_numpy(a).to(device)
+             for a in M.probe_inputs(small_tiles, M.CHUNKS)]
+    small_err = {name: compare_probe(
+        M.microprobe(*small, **M.VARIANTS[name]),
+        M.microprobe_torch(*small, **M.toggles_of(name)))
+        for name in M.VARIANTS}
+    emit(phase="microprobe_kernel",
+         shape=f"{small_tiles} tiles x {M.CHUNKS} chunks",
+         err_and_max_per_channel=small_err)
+
+    # `full` on random tiles of the protocol shape, then the plain version's
+    # time over all of it
+    feats, starts, counts = (torch.from_numpy(a).to(device)
+                             for a in M.probe_inputs(n_tiles, chunks))
+    sel = torch.from_numpy(np.random.default_rng(1).choice(
+        n_tiles, check_tiles, replace=False)).to(device)
+    s_sel, c_sel = starts[sel].contiguous(), counts[sel].contiguous()
+    full = M.toggles_of("full")
+    check_err = compare_probe(M.microprobe(feats, s_sel, c_sel, **full),
+                              M.microprobe_torch(feats, s_sel, c_sel, **full))
+    plain_ms = cuda_ms(lambda: M.microprobe_torch(feats, starts, counts,
+                                                  **full), warmup=1, iters=1)
+    del feats, starts, counts
+
+    # the main path: the entry point at the protocol shape, every variant;
+    # it prints one line per variant (us per chunk, live shares, bound)
+    R.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = KM.main(["--device", str(device), "--n-tiles", str(n_tiles),
+                   "--chunks", str(chunks)])
+    main_s = time.perf_counter() - t0
+    launches = dict(R.LAUNCHES)
+    want = {"kernel_microprobe": len(M.VARIANTS) * (1 + KM.REPS)}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    f = res["summary"]["full"]
+    max_err = max(err for err, _ in small_err["full"] + check_err)
+    emit(phase="microprobe", shape=res["shape"], pairs=res["pairs"],
+         main_s=main_s, launches=launches, reps=res["reps"],
+         full_ms=f["ms"], full_bound_ms=f["bound_ms"], plain_ms=plain_ms,
+         check_tiles=check_tiles, check_err_and_max_per_channel=check_err,
+         library_ms=None)
+    return dict(launches=launches["kernel_microprobe"], kernel_ms=f["ms"],
+                plain_ms=plain_ms, bound_ms=f["bound_ms"],
+                bound_by=f["bound_by"], max_abs_err=max_err)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1248,7 +1339,8 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = cuda_build.build_all()
     emit(phase="build", seconds=time.perf_counter() - t0, card=smi,
-         ptxas={k: [ln for ln in v.splitlines() if "Used" in ln or "spill" in ln]
+         ptxas={k: [ln for ln in v.splitlines() if "Used" in ln
+                    or "spill" in ln or "entry function" in ln]
                 for k, v in reports.items()})
 
     worst, worst_bwd, worst_stats = phase_kernel(device)
@@ -1258,10 +1350,13 @@ def main() -> int:
                              "on the render path, expected one per view")
     tr = phase_train(device)
     hl = phase_host_loop(device)
+    mp = phase_microprobe(device)
     # launches: each kernel's count on the main path of the slice that
     # brought it (the training run for K1 and K2, the host loop's run for
-    # K3); the forward kernel's times are those of the render path's view,
-    # the stats kernel's those of the host loop's first densify view
+    # K3, the microprobe's entry point for K4); the forward kernel's times
+    # are those of the render path's view, the stats kernel's those of the
+    # host loop's first densify view, the probe's those of `full` at the
+    # protocol shape
     emit(kernels=[{
         "name": "rasterize_fwd", "route": "cuda",
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_fwd.cu",
@@ -1286,6 +1381,13 @@ def main() -> int:
         "max_abs_err": max(worst_stats, hl["max_abs_err"]),
         "ms": hl["kernel_ms"], "plain_ms": hl["plain_ms"],
         "bound_ms": hl["bound_ms"], "bound_by": hl["bound_by"],
+        "library_ms": None}, {
+        "name": "kernel_microprobe", "route": "cuda",
+        "source": "vcr_gaus_tpu_torch/csrc/kernel_microprobe.cu",
+        "replaces": "scripts/kernel_microprobe.py:60",
+        "launches": mp["launches"], "max_abs_err": mp["max_abs_err"],
+        "ms": mp["kernel_ms"], "plain_ms": mp["plain_ms"],
+        "bound_ms": mp["bound_ms"], "bound_by": mp["bound_by"],
         "library_ms": None}])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from chip_smoke import (BWD_SATURATED, compare_backward, compare_kernel,
-                        compare_stats, saturated_scene, splat_scene)
+                        compare_probe, compare_stats, saturated_scene,
+                        splat_scene)
+from vcr_gaus_tpu_torch.ops import microprobe as M
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +141,50 @@ def test_render_stats_launches_the_kernel(cuda):
                               RenderConfig(width=64, height=48))
     assert dict(R.LAUNCHES) == {"rasterize_stats": 1}
     assert float(count[:200].sum()) > 0 and float(imp[200:].abs().sum()) == 0
+
+
+def probe_inputs(device, n_tiles=4, chunks=6):
+    return [torch.from_numpy(a).to(device)
+            for a in M.probe_inputs(n_tiles, chunks, seed=2)]
+
+
+@pytest.mark.parametrize("variant", list(M.VARIANTS))
+def test_kernel_microprobe_matches_plain(cuda, variant):
+    ins = probe_inputs(cuda)
+    # compare_probe holds each channel to atol 2e-4 times its own max|value|
+    # and rtol 1e-3
+    compare_probe(M.microprobe(*ins, **M.VARIANTS[variant]),
+                  M.microprobe_torch(*ins, **M.toggles_of(variant)))
+
+
+def test_kernel_microprobe_uneven_tiles(cuda):
+    # tiles of 0, 2 and 6 chunks, one range starting mid-matrix
+    feats, starts, counts = probe_inputs(cuda)
+    starts = torch.tensor([0, 1536, 4608, 3072], dtype=torch.int32,
+                          device=cuda)
+    counts = torch.tensor([1536, 0, 512, 1536], dtype=torch.int32,
+                          device=cuda)
+    for name in ("full", "full_d6", "full_d4_g512", "dma_u6"):
+        compare_probe(M.microprobe(feats, starts, counts, **M.VARIANTS[name]),
+                      M.microprobe_torch(feats, starts, counts,
+                                         **M.toggles_of(name)))
+
+
+def test_kernel_microprobe_rejects_ragged(cuda):
+    feats, starts, counts = probe_inputs(cuda)
+    counts[0] -= 1
+    with pytest.raises(ValueError):
+        M.microprobe(feats, starts, counts, **M.VARIANTS["full"])
+    with pytest.raises(ValueError):
+        M.microprobe(feats, starts + 64, counts + 1, **M.VARIANTS["dma_only"])
+
+
+def test_kernel_microprobe_launch_count(cuda):
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    ins = probe_inputs(cuda, n_tiles=2)
+    R.reset_launch_counts()
+    M.microprobe(*ins, **M.VARIANTS["full"])
+    assert dict(R.LAUNCHES) == {"kernel_microprobe": 1}
+    M.microprobe_torch(*ins, **M.toggles_of("full"))
+    M.microprobe(*ins, **M.VARIANTS["no_exp"])
+    assert dict(R.LAUNCHES) == {"kernel_microprobe": 2}
