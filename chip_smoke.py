@@ -8,18 +8,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              together, sm_90a), and print the card's name and power limit;
   2. kernel  each kernel's wrapper against its plain PyTorch version on the
              card at small shapes (both depth modes, 0, 2 and 3 semantic
-             channels, a ragged 40x24 image, an all-culled scene, a
-             saturated scene where the early stop fires): the forward
-             kernel at atol 2e-4 and rtol 1e-3 on every channel, the
-             backward kernel's per-Gaussian gradients, each column group
-             (mean, conic, opacity, depth, plane, normal, rgb, sem,
-             |d mean2d|) at atol 2e-3 times its own max|g| and rtol 2e-3
-             (5e-2 in the saturated scene);
+             channels, ragged 40x24 and 45x29 images, an all-culled scene,
+             a saturated scene where the early stop fires, a scene whose
+             pairs sit at the dead-pair threshold): the forward kernel at
+             atol 2e-4 and rtol 1e-3 on every channel and its batch
+             counts exactly, the backward kernel's per-Gaussian
+             gradients, each column group (mean, conic, opacity, depth,
+             plane, normal, rgb, sem, |d mean2d|) at atol 2e-3 times its
+             own max|g| and rtol 2e-3 (5e-2 in the saturated scene);
   3. slice   the render path at full width: a synthetic COLMAP scene of 8
              1600x1200 views and a 1M-Gaussian SH-degree-3 PLY, rendered and
-             scored by vcr_gaus_tpu_torch.render_eval.main; the launch counts
-             of that run, kernel and render times, the kernel held against
-             its plain version on 64 random tiles of one full-width view;
+             scored by vcr_gaus_tpu_torch.render_eval.main with
+             LPIPS_WEIGHTS=placeholder (PSNR, SSIM, LPIPS); the launch
+             counts of that run, kernel, LPIPS and render times, the
+             kernel held against its plain version on 64 random tiles of
+             one full-width view;
   4. train   the training path at full width: a 1M-point COLMAP scene of 8
              1600x1200 views with unit-normal priors, trained for 20
              iterations of configs/dtu/base.yaml through
@@ -27,7 +30,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              of that run; then, on the trained state with 4x scales and every
              loss gate open, the step time, a torch.profiler stage table,
              the backward kernel's time, bound and plain time, and the
-             kernel held against its plain version on one full-width step;
+             kernel held against its plain version on one full-width
+             step, with the forward kernel's time on that view;
   5. host_loop  the DTU recipe's host loop at full width: the same kind of
              scene, tpu.capacity 2^21, configs/dtu/base.yaml with its own
              prune schedule compressed (densify after 20, 30 and 40, each
@@ -116,6 +120,17 @@ def emit(**row) -> None:
     print(json.dumps(row), flush=True)
 
 
+def warp_of_pixel(patches: bool):
+    """(256,) warp of each tile pixel (row-major) under the kernels'
+    pixel-to-thread map (composite_pair.cuh's PixelMap: 2 pixels a thread,
+    8x8 patches) for ``patches``, else under a thread per pixel in 16x2
+    rows, the map the kernels had before."""
+    import torch
+    pix = torch.arange(256)
+    x, y = pix % 16, pix // 16
+    return (y // 8) * 2 + x // 8 if patches else y // 2
+
+
 def splat_scene(n=60, seed=0, ch_sem=0, width=40, height=24):
     """Random 2D splats in the packed feature layout: (feats (N, 14+S) f32,
     radius (N,) i32, cam (8,) f32), as numpy."""
@@ -165,6 +180,35 @@ def saturated_scene(n=700, seed=7, width=40, height=24):
     cam = np.array([50.0, 50.0, width / 2, height / 2, 0.1, 0.5, 0.9, 0.0],
                    np.float32)
     return feats, np.full(n, 30, np.int32), cam
+
+
+def threshold_scene(n=300, seed=11, width=45, height=29):
+    """Isotropic splats centred on pixels, each with its power at the 8
+    pixels at squared distance 5 from its centre within 4e-3 of its alpha
+    threshold ln((1/255) / opacity), and at least 2e-5 from it (far above
+    alpha's rounding): pairs on both sides of the alpha test and of the
+    kernels' dead-pair threshold 1e-3 below it. On a ragged 45x29 image.
+    A pair the threshold skipped wrongly would move a weight by T/255."""
+    rng = np.random.default_rng(seed)
+    op = rng.uniform(0.05, 0.9, n).astype(np.float32)
+    level = np.log(np.float64(np.float32(1.0 / 255.0)) / op)
+    delta = rng.uniform(2e-5, 4e-3, n) * rng.choice([-1.0, 1.0], n)
+    depth = rng.uniform(1.0, 9.0, n)
+    normal = rng.normal(size=(n, 3))
+    normal[:, 2] = -np.abs(normal[:, 2]) - 0.3
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    feats = np.zeros((n, 14), np.float32)
+    feats[:, 0] = rng.integers(0, width, n)
+    feats[:, 1] = rng.integers(0, height, n)
+    feats[:, 2] = feats[:, 4] = -2.0 * (level + delta) / 5.0
+    feats[:, 5] = op
+    feats[:, 6] = depth
+    feats[:, 7] = -depth * np.abs(normal[:, 2])
+    feats[:, 8:11] = normal
+    feats[:, 11:14] = rng.uniform(0, 1, (n, 3))
+    cam = np.array([50.0, 50.0, width / 2, height / 2, 0.1, 0.5, 0.9, 0.0],
+                   np.float32)
+    return feats, np.full(n, 4, np.int32), cam
 
 
 def compare_kernel(feats, radius, cam, width, height, ch_sem, depth_mode,
@@ -291,18 +335,25 @@ def worst_error(groups) -> float:
     return max((err for err, _ in groups.values()), default=0.0)
 
 
-def phase_kernel(device) -> tuple[float, float]:
-    """Phase 2; returns the largest forward and backward errors seen."""
-    cases = [("traditional", 0, 40, 24, splat_scene(seed=0)),
-             ("intersection", 0, 40, 24, splat_scene(seed=1)),
-             ("traditional", 2, 40, 24, splat_scene(seed=6, ch_sem=2)),
-             ("intersection", 2, 40, 24, splat_scene(seed=7, ch_sem=2)),
-             ("traditional", 3, 40, 24, splat_scene(seed=2, ch_sem=3)),
-             ("intersection", 3, 40, 24, splat_scene(seed=3, ch_sem=3)),
-             ("intersection", 3, 200, 150,
+def phase_kernel(device) -> tuple[float, float, float]:
+    """Phase 2; returns the largest forward, backward and stats errors."""
+    cases = [("", "traditional", 0, 40, 24, splat_scene(seed=0)),
+             ("", "intersection", 0, 40, 24, splat_scene(seed=1)),
+             ("", "traditional", 2, 40, 24, splat_scene(seed=6, ch_sem=2)),
+             ("", "intersection", 2, 40, 24, splat_scene(seed=7, ch_sem=2)),
+             ("", "traditional", 3, 40, 24, splat_scene(seed=2, ch_sem=3)),
+             ("", "intersection", 3, 40, 24, splat_scene(seed=3, ch_sem=3)),
+             ("", "traditional", 0, 45, 29,
+              splat_scene(n=200, seed=8, width=45, height=29)),
+             ("", "intersection", 3, 45, 29,
+              splat_scene(n=200, seed=9, ch_sem=3, width=45, height=29)),
+             ("threshold_", "traditional", 0, 45, 29, threshold_scene()),
+             ("threshold_", "intersection", 0, 45, 29,
+              threshold_scene(seed=12)),
+             ("", "intersection", 3, 200, 150,
               splat_scene(n=3000, seed=4, ch_sem=3, width=200, height=150))]
     worst = worst_bwd = worst_stats = 0.0
-    for mode, ch_sem, w, h, (feats, radius, cam) in cases:
+    for name, mode, ch_sem, w, h, (feats, radius, cam) in cases:
         err, _, _ = compare_kernel(feats, radius, cam, w, h, ch_sem, mode,
                                    device)
         bwd = compare_backward(feats, radius, cam, w, h, ch_sem, mode, device)
@@ -311,7 +362,7 @@ def phase_kernel(device) -> tuple[float, float]:
         worst = max(worst, *err.values())
         worst_bwd = max(worst_bwd, worst_error(bwd))
         worst_stats = max(worst_stats, st_err)
-        emit(phase="kernel", case=f"{mode}_sem{ch_sem}_{w}x{h}",
+        emit(phase="kernel", case=f"{name}{mode}_sem{ch_sem}_{w}x{h}",
              max_abs_err=err, bwd_err_and_max_grad=bwd,
              stats_imp_max_abs_err=st_err)
     feats, radius, cam = splat_scene(seed=5)
@@ -339,23 +390,27 @@ def phase_kernel(device) -> tuple[float, float]:
     # the tile, the stats walk (out-of-image pixels keep T = 1) does not
     ragged = feats.copy()
     ragged[:, 1] += 16.0
-    _, r_batches, r_held = compare_kernel(ragged, radius, cam, 40, 24, 0,
-                                          "traditional", device)
-    r_err, rs_batches, _ = compare_stats(ragged, radius, 40, 24, device)
+    r_err, r_batches, r_held = compare_kernel(ragged, radius, cam, 40, 24, 0,
+                                              "traditional", device)
+    r_bwd = compare_backward(ragged, radius, cam, 40, 24, 0, "traditional",
+                             device, tol=BWD_SATURATED)
+    rs_err, rs_batches, _ = compare_stats(ragged, radius, 40, 24, device)
     t = -(-40 // 16)                        # first tile of the ragged row
     if not (int(r_batches[t]) < int(r_held[t]) == int(rs_batches[t])):
         raise AssertionError("ragged tile: forward batches "
                              f"{r_batches.tolist()}, stats batches "
                              f"{rs_batches.tolist()}, held {r_held.tolist()}")
-    worst = max(worst, *err.values())
-    worst_bwd = max(worst_bwd, worst_error(bwd))
-    worst_stats = max(worst_stats, st_err, r_err)
+    worst = max(worst, *err.values(), *r_err.values())
+    worst_bwd = max(worst_bwd, worst_error(bwd), worst_error(r_bwd))
+    worst_stats = max(worst_stats, st_err, rs_err)
     emit(phase="kernel", case="saturated_40x24", max_abs_err=err,
          bwd_err_and_max_grad=bwd,
          batches_done=batches.tolist(),
          batches_held=held.tolist(), stats_imp_max_abs_err=st_err,
          stats_batches=st_batches.tolist(),
-         ragged_row_stats_imp_max_abs_err=r_err,
+         ragged_row_max_abs_err=r_err,
+         ragged_row_bwd_err_and_max_grad=r_bwd,
+         ragged_row_stats_imp_max_abs_err=rs_err,
          ragged_row_fwd_batches=r_batches.tolist(),
          ragged_row_stats_batches=rs_batches.tolist())
     return worst, worst_bwd, worst_stats
@@ -532,11 +587,15 @@ def composited_census(binn, batches) -> tuple[int, int]:
 
 
 def pair_census(feats, binn, batches, n_tx, width=None,
-                height=None) -> list[int]:
+                height=None) -> tuple[int, int, int, dict]:
     """Counts of the (pixel, entry) pairs the kernel evaluates on one view:
     all of them (every entry of each batch a tile composited, for all of
     the tile's pixels, or only those inside a ``width`` x ``height`` image),
-    those past the power test, and the live ones."""
+    those past the power test, and the live ones; and per pixel-to-warp map
+    (``warp_of_pixel``: the kernels' 8x8 patches, the thread-per-pixel rows
+    before) [(warp, entry) steps with a live lane, all (warp, entry) steps,
+    their ratio]: the steps on which a warp runs the live body, and the
+    backward kernel its warp reduction."""
     import torch
 
     from vcr_gaus_tpu_torch.ops import projection as PF
@@ -549,6 +608,9 @@ def pair_census(feats, binn, batches, n_tx, width=None,
     gid = binn.sorted_gid.to(torch.int64)
     starts = binn.tile_starts.to(torch.int64)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    maps = {"rows16x2_P1": warp_of_pixel(False).to(dev),
+            "patch8x8_P2": warp_of_pixel(True).to(dev)}
+    steps = {k: torch.zeros(2, dtype=torch.int64, device=dev) for k in maps}
     for k in range(int(batches.max())):
         busy = torch.nonzero(batches > k).squeeze(1)
         for g0 in range(0, busy.numel(), 128):
@@ -570,7 +632,18 @@ def pair_census(feats, binn, batches, n_tx, width=None,
             live = passed & (f[:, None, :, PF.F_OPACITY] * torch.exp(power)
                              >= ALPHA_EPS)
             counts += torch.stack([pairs.sum(), passed.sum(), live.sum()])
-    return counts.tolist()
+            for name, m in maps.items():
+                n_warps = int(m.max()) + 1
+                per_warp = torch.zeros((ids.numel(), n_warps, R.BATCH),
+                                       device=dev)
+                per_warp.index_add_(1, m, live.float())
+                steps[name] += torch.stack([(per_warp > 0).sum(),
+                                            valid.sum() * n_warps])
+    warp_steps = {}
+    for name, (lv, total) in steps.items():
+        warp_steps[name] = [int(lv), int(total), int(lv) / max(int(total), 1)]
+    pairs, passed, live = counts.tolist()
+    return pairs, passed, live, warp_steps
 
 
 def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
@@ -578,8 +651,11 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
     """Phase 3: the full-width render path through render_eval.main."""
     import torch
 
+    from PIL import Image
+
     from vcr_gaus_tpu_torch import render_eval
     from vcr_gaus_tpu_torch.data.scene import load_scene_info
+    from vcr_gaus_tpu_torch.evaluation import lpips as L
     from vcr_gaus_tpu_torch.models.ply_io import load_gaussian_ply
     from vcr_gaus_tpu_torch.ops import binning as B
     from vcr_gaus_tpu_torch.ops import rasterize as R
@@ -601,24 +677,49 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
             calls.append((args, kw, out))
             return out
 
+        # LPIPS from the generated placeholder weights, written under root
+        lp_path = L.placeholder_path
+        L.placeholder_path = lambda: os.path.join(root, "lpips.npz")
+        os.environ["LPIPS_WEIGHTS"] = "placeholder"
         R.rasterize_forward = spy
         R.reset_launch_counts()
         t0 = time.perf_counter()
-        results = render_eval.main(["--cfg_path", cfg_path,
-                                    "--device", str(device)])
+        try:
+            results = render_eval.main(["--cfg_path", cfg_path,
+                                        "--device", str(device)])
+        finally:
+            del os.environ["LPIPS_WEIGHTS"]
+            R.rasterize_forward = wrapped
         eval_s = time.perf_counter() - t0
         launches = dict(R.LAUNCHES)
-        R.rasterize_forward = wrapped
 
         train = results["train"]
         if len(calls) != n_views or not all(map(math.isfinite,
                                                 train.values())):
             raise AssertionError(f"render_eval: {len(calls)} views, {train}")
-        rendered = os.listdir(os.path.join(os.path.dirname(cfg_path), "train",
-                                           "ours_30000", "renders"))
+        if train.get("LPIPS_placeholder") is not True or "LPIPS" not in train:
+            raise AssertionError(f"no placeholder LPIPS column: {train}")
+        out_dir = os.path.join(os.path.dirname(cfg_path), "train",
+                               "ours_30000")
+        rendered = os.listdir(os.path.join(out_dir, "renders"))
         if len(rendered) != n_views:
             raise AssertionError(f"{len(rendered)} renders written")
         entries = [c[0][1].num_entries for c in calls]
+
+        # LPIPS per view at full width, as evaluate_dir calls it: the two
+        # u8 images read, uploaded and scored
+        lp = L.LPIPS(L.placeholder_path(), device=device)
+        L.placeholder_path = lp_path
+        pair = [np.asarray(Image.open(os.path.join(out_dir, sub, rendered[0])),
+                           np.float32).transpose(2, 0, 1) / 255.0
+                for sub in ("renders", "gt")]
+        lpips_ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(lp(*pair))
+            lpips_ms.append(1e3 * (time.perf_counter() - t0))
+        del lp
 
         # view 0: image sanity, kernel and plain timings, the tile check
         (feats, binn, cam, w, h, ch_sem, mode), _, (img, batches) = calls[0]
@@ -664,7 +765,8 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
         # each gaussian's feature row read once, the tile ranges, and the
         # image written once
         composited, rows = composited_census(binn, batches)
-        pairs, power_pass, live = pair_census(feats, binn, batches, n_tx)
+        pairs, power_pass, live, warp_steps = pair_census(feats, binn,
+                                                          batches, n_tx)
         ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
                + (OPS_LIVE + OPS_LIVE_SEM * ch_sem
                   + OPS_LIVE_INTERSECT * (mode == "intersection")) * live)
@@ -696,12 +798,15 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
 
     emit(phase="slice", gaussians=n_gauss, width=width, height=height,
          views=n_views, setup_s=setup_s, render_eval_s=eval_s,
-         psnr=train["PSNR"], ssim=train["SSIM"], entries_per_view=entries,
-         launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
+         psnr=train["PSNR"], ssim=train["SSIM"], lpips=train["LPIPS"],
+         lpips_placeholder=train["LPIPS_placeholder"],
+         lpips_ms_per_view=statistics.median(lpips_ms[1:]),
+         entries_per_view=entries, launches=launches,
+         kernel_ms=kernel_ms, plain_ms=plain_ms,
          render_ms_per_view=statistics.median(render_ms),
          render_ms_all=render_ms, composited_entries=composited,
          pairs=pairs, pairs_past_power_test=power_pass, live_pairs=live,
-         bound_ops=ops,
+         warp_steps_live=warp_steps, bound_ops=ops,
          bound_ms=bound_ms, bound_flop_ms=1e3 * flop_s,
          bound_byte_ms=1e3 * byte_s, feature_rows_read=rows,
          tile_check_max_abs_err=err, library_ms=None)
@@ -872,23 +977,27 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
             st_ms.get("autograd", 0.0) - k2_ms
             - st_ms.get("render.composite_backward", 0.0))
 
-        # the backward kernel on one full-width step's inputs
-        captured = []
-        wrapped = R.rasterize_backward
+        # the two kernels on one full-width step's inputs
+        captured = {}
+        wrapped = R.rasterize_forward, R.rasterize_backward
 
-        def spy(*args, **kw):
-            captured.append((args, kw))
-            return wrapped(*args, **kw)
+        def spy(name, fn):
+            def call(*args):
+                captured[name] = args
+                return fn(*args)
+            return call
 
-        R.rasterize_backward = spy
+        R.rasterize_forward = spy("fwd", wrapped[0])
+        R.rasterize_backward = spy("bwd", wrapped[1])
         try:
             state, _, aux = one(3 + timed_steps, state)
         finally:
-            R.rasterize_backward = wrapped
+            R.rasterize_forward, R.rasterize_backward = wrapped
         # detached: the saved features still require grad, and the plain
         # version would record a graph through its batches
-        args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
-                     for a in captured[0][0])
+        args, fwd_args = (tuple(a.detach() if isinstance(a, torch.Tensor)
+                                else a for a in captured[k])
+                          for k in ("bwd", "fwd"))
         feats, binn, cam, img, g_img, batches, w, h, ch_sem, mode = args
 
         def kernel():
@@ -900,12 +1009,14 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
                 batches, cam, img, g_img, ch_sem, mode)
 
         kernel_ms = cuda_ms(kernel)
+        fwd_kernel_ms = cuda_ms(lambda: R.rasterize_forward(*fwd_args))
         plain_ms = cuda_ms(plain, warmup=1, iters=2)
         groups = assert_grads_close(kernel(), plain(), ch_sem, BWD["rtol"])
 
         n_tx, _ = B.tile_grid(w, h)
         composited, rows = composited_census(binn, batches)
-        pairs, power_pass, live = pair_census(feats, binn, batches, n_tx)
+        pairs, power_pass, live, warp_steps = pair_census(feats, binn,
+                                                          batches, n_tx)
         ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
                + (OPS_BWD_LIVE + OPS_BWD_LIVE_SEM * ch_sem
                   + OPS_BWD_LIVE_INTERSECT * (mode == "intersection")) * live)
@@ -925,7 +1036,9 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
          step_losses=step_losses, launches_per_step=per_step,
          entries=aux["num_entries"], composited_entries=composited,
          pairs=pairs, pairs_past_power_test=power_pass, live_pairs=live,
-         bwd_kernel_ms=kernel_ms, bwd_plain_ms=plain_ms, bwd_bound_ops=ops,
+         bwd_kernel_ms=kernel_ms, fwd_kernel_ms=fwd_kernel_ms,
+         warp_steps_live=warp_steps,
+         bwd_plain_ms=plain_ms, bwd_bound_ops=ops,
          bwd_bound_ms=bound_ms, bwd_bound_flop_ms=1e3 * flop_s,
          bwd_bound_byte_ms=1e3 * byte_s, feature_rows_read=rows,
          bwd_full_width_err_and_max_grad=groups,
@@ -1216,7 +1329,7 @@ def stats_kernel_numbers(feats, binn, w, h, timing_iters) -> dict:
         raise AssertionError("full-width stats: hit counts differ")
     torch.testing.assert_close(got[:, 1], want[:, 1], **FWD)
     walked, rows = composited_census(binn, batches)
-    pairs, power_pass, live = pair_census(feats, binn, batches, n_tx, w, h)
+    pairs, power_pass, live, _ = pair_census(feats, binn, batches, n_tx, w, h)
     ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
            + OPS_STATS_LIVE * live)
     flop_s = ops / PEAK_FP32

@@ -12,7 +12,7 @@ import torch
 
 from chip_smoke import (BWD_SATURATED, compare_backward, compare_kernel,
                         compare_probe, compare_stats, saturated_scene,
-                        splat_scene)
+                        splat_scene, threshold_scene)
 from vcr_gaus_tpu_torch.ops import microprobe as M
 
 pytestmark = pytest.mark.cuda
@@ -35,6 +35,27 @@ def test_rasterize_fwd_matches_plain(cuda, depth_mode, ch_sem):
     err, _, _ = compare_kernel(feats, radius, cam, 72, 40, ch_sem, depth_mode,
                                cuda)
     assert len(err) == 9 + ch_sem
+
+
+@pytest.mark.parametrize("depth_mode", ["traditional", "intersection"])
+def test_rasterize_ragged_edges(cuda, depth_mode):
+    # 45x29: the last tile column and row hold 13 pixels, so the pixel map
+    # has threads whose two pixels lie one inside and one outside the image
+    feats, radius, cam = splat_scene(n=250, seed=13, ch_sem=2, width=45,
+                                     height=29)
+    compare_kernel(feats, radius, cam, 45, 29, 2, depth_mode, cuda)
+    compare_backward(feats, radius, cam, 45, 29, 2, depth_mode, cuda)
+
+
+@pytest.mark.parametrize("depth_mode", ["traditional", "intersection"])
+def test_rasterize_dead_pair_threshold(cuda, depth_mode):
+    # pairs within 4e-3 of the alpha threshold on both sides of the
+    # kernels' dead-pair threshold: every channel at the forward tolerance
+    # and the batch counts exactly (compare_kernel), and the gradients
+    seed = 14 if depth_mode == "traditional" else 15
+    feats, radius, cam = threshold_scene(seed=seed)
+    compare_kernel(feats, radius, cam, 45, 29, 0, depth_mode, cuda)
+    compare_backward(feats, radius, cam, 45, 29, 0, depth_mode, cuda)
 
 
 def test_rasterize_fwd_early_stop(cuda):

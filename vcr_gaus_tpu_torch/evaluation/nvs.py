@@ -1,6 +1,7 @@
 """Novel-view-synthesis metrics + render sweeps (vcr_gaus_tpu/evaluation/
-nvs.py). PSNR and SSIM; LPIPS waits until converted VGG weights are in the
-repository."""
+nvs.py): PSNR, SSIM, and LPIPS where weights are supplied
+(``evaluation/lpips.py``: ``$LPIPS_WEIGHTS``, ``placeholder`` included, or
+the ``$LPIPS_VGG_PATH`` + ``$LPIPS_LIN_PATH`` pair)."""
 
 from __future__ import annotations
 
@@ -58,9 +59,13 @@ def render_sets(state, cameras, rcfg, bg, out_dir: str, sh_degree: int = 3,
 
 
 def evaluate_dir(out_dir: str, device: str | torch.device = "cuda") -> dict:
-    """PSNR/SSIM over saved renders vs gt; writes results.json and
-    per_view.json."""
+    """PSNR/SSIM/LPIPS over saved renders vs gt; writes results.json and
+    per_view.json. LPIPS is included when ``LPIPS.from_env`` finds weights,
+    and flagged ``LPIPS_placeholder`` for the generated ones."""
     from PIL import Image
+
+    from .lpips import LPIPS
+    lp = LPIPS.from_env(device)
     rdir = os.path.join(out_dir, "renders")
     gdir = os.path.join(out_dir, "gt")
     per_view: dict[str, dict] = {}
@@ -70,10 +75,18 @@ def evaluate_dir(out_dir: str, device: str | torch.device = "cuda") -> dict:
         g = np.asarray(Image.open(os.path.join(gdir, n)),
                        np.float32).transpose(2, 0, 1) / 255.0
         per_view[n] = {"psnr": psnr(r, g), "ssim": ssim(r, g, device)}
+        if lp is not None:
+            per_view[n]["lpips"] = float(lp(r, g))
     results = {
         "PSNR": float(np.mean([v["psnr"] for v in per_view.values()])),
         "SSIM": float(np.mean([v["ssim"] for v in per_view.values()])),
     }
+    if lp is not None:
+        results["LPIPS"] = float(np.mean([v["lpips"]
+                                          for v in per_view.values()]))
+        if lp.is_placeholder:
+            # random weights: the column exercises the plumbing only
+            results["LPIPS_placeholder"] = True
     with open(os.path.join(out_dir, "results.json"), "w") as f:
         json.dump(results, f, indent=2)
     with open(os.path.join(out_dir, "per_view.json"), "w") as f:

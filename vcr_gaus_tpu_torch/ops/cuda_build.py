@@ -4,7 +4,8 @@ Each source under ``vcr_gaus_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. The build runs at first use, one ``nvcc`` per source, all
 started together, into ``build/torch_kernels/`` of the checkout, keyed by a
-hash of the source and the flags, so an unchanged source is never rebuilt.
+hash of the source, the headers under ``csrc/`` and the flags, so an
+unchanged source is never rebuilt.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -2,11 +2,14 @@
 ``render_eval.py`` (same flags, plus ``--device``):
 
   python -m vcr_gaus_tpu_torch.render_eval --cfg_path output/run/config.yaml \
-      [--skip_train] [--skip_test] [--iteration N] [--device cuda|cpu]
+      [--skip_train] [--skip_test] [--iteration N] [--lpips_weights W.npz] \
+      [--device cuda|cpu]
 
 Loads ``point_cloud/iteration_<N>/point_cloud.ply`` beside the config,
 renders every view of the scene's train and test splits to
-``<split>/ours_<N>/{renders,gt}`` and prints PSNR/SSIM per split.
+``<split>/ours_<N>/{renders,gt}`` and prints PSNR/SSIM per split, and LPIPS
+where weights are given (``--lpips_weights`` sets ``$LPIPS_WEIGHTS``; the
+value ``placeholder`` generates random stand-in weights).
 """
 
 from __future__ import annotations
@@ -19,14 +22,20 @@ import numpy as np
 
 
 def main(argv: list[str] | None = None) -> dict[str, dict]:
-    """Returns {split: {"PSNR": ..., "SSIM": ...}} for the rendered splits."""
+    """Returns {split: {"PSNR": ..., "SSIM": ...[, "LPIPS": ...]}} for the
+    rendered splits."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--cfg_path", required=True)
     ap.add_argument("--iteration", type=int, default=-1)
     ap.add_argument("--skip_train", action="store_true")
     ap.add_argument("--skip_test", action="store_true")
+    ap.add_argument("--lpips_weights", default=None,
+                    help="combined LPIPS npz from scripts/convert_lpips.py"
+                         " (default: $LPIPS_WEIGHTS); adds the LPIPS column")
     ap.add_argument("--device", default="cuda")
     args, overrides = ap.parse_known_args(argv)
+    if args.lpips_weights:
+        os.environ["LPIPS_WEIGHTS"] = args.lpips_weights
 
     from .config import Config
     from .data.scene import load_scene_info
