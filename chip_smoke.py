@@ -31,7 +31,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              loss gate open, the step time, a torch.profiler stage table,
              the backward kernel's time, bound and plain time, and the
              kernel held against its plain version on one full-width
-             step, with the forward kernel's time on that view;
+             step, with the forward kernel's time and bound on that view;
   5. host_loop  the DTU recipe's host loop at full width: the same kind of
              scene, tpu.capacity 2^21, configs/dtu/base.yaml with its own
              prune schedule compressed (densify after 20, 30 and 40, each
@@ -45,8 +45,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              for the first view of the densifies at 20 and 30 (the kernels
              line reads the one at 20), and on one view of the final state
              as it is and at opacity 0.1, each with the share of its pairs
-             that is live and the Gaussians' live areas that explain it;
-             the host time of one densify and one prune;
+             that is live, the Gaussians' live areas that explain it and
+             the warp steps with a live lane under the kernel's 8x8
+             patches and under the 16x2 rows of a thread per pixel; the
+             host time of one densify and one prune;
   6. microprobe  the forward-loop microprobe (K4): every variant against its
              plain version at 8 tiles x 6 chunks, each channel at atol 2e-4
              times its own max|value| and rtol 1e-3; `full` again on 64
@@ -54,7 +56,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              256 entries); then vcr_gaus_tpu_torch.tools.kernel_microprobe's
              main at the protocol shape, every variant, which prints one
              line per variant (us per chunk, live shares, bound, x bound);
-             the plain version's time for `full` at the protocol shape;
+             `full`'s warp steps with a live lane under the kernel's 8x8
+             patches and under rows of 32 pixels; the plain version's
+             time for `full` at the protocol shape;
 then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of vcr_gaus_tpu.
 """
@@ -118,17 +122,6 @@ DTU_FULL_WEIGHTS = {"l1": 0.8, "ssim": 0.2, "mono_normal": 0.01,
 
 def emit(**row) -> None:
     print(json.dumps(row), flush=True)
-
-
-def warp_of_pixel(patches: bool):
-    """(256,) warp of each tile pixel (row-major) under the kernels'
-    pixel-to-thread map (composite_pair.cuh's PixelMap: 2 pixels a thread,
-    8x8 patches) for ``patches``, else under a thread per pixel in 16x2
-    rows, the map the kernels had before."""
-    import torch
-    pix = torch.arange(256)
-    x, y = pix % 16, pix // 16
-    return (y // 8) * 2 + x // 8 if patches else y // 2
 
 
 def splat_scene(n=60, seed=0, ch_sem=0, width=40, height=24):
@@ -586,16 +579,33 @@ def composited_census(binn, batches) -> tuple[int, int]:
     return int(used.sum()), int(torch.unique(binn.sorted_gid[used]).numel())
 
 
+def fwd_bound(feats, binn, composited, rows, pairs, power_pass, live,
+              width, height, ch_sem, mode) -> tuple[int, float, float]:
+    """The forward kernel's least time on one view, from its data: (ops,
+    seconds at the FP32 peak, seconds at the HBM peak). The operations are
+    those of the pairs of the entries each tile composited before its stop,
+    256 pixels each, at what their outcome needs; the bytes, their gids,
+    each Gaussian's feature row read once, the tile ranges, and the image
+    written once."""
+    ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
+           + (OPS_LIVE + OPS_LIVE_SEM * ch_sem
+              + OPS_LIVE_INTERSECT * (mode == "intersection")) * live)
+    nbytes = (4 * composited + 4 * feats.shape[1] * rows
+              + 8 * binn.tile_counts.numel()
+              + height * width * 4 * (9 + ch_sem))
+    return ops, ops / PEAK_FP32, nbytes / PEAK_BYTES
+
+
 def pair_census(feats, binn, batches, n_tx, width=None,
                 height=None) -> tuple[int, int, int, dict]:
     """Counts of the (pixel, entry) pairs the kernel evaluates on one view:
     all of them (every entry of each batch a tile composited, for all of
     the tile's pixels, or only those inside a ``width`` x ``height`` image),
     those past the power test, and the live ones; and per pixel-to-warp map
-    (``warp_of_pixel``: the kernels' 8x8 patches, the thread-per-pixel rows
-    before) [(warp, entry) steps with a live lane, all (warp, entry) steps,
-    their ratio]: the steps on which a warp runs the live body, and the
-    backward kernel its warp reduction."""
+    (``rasterize.warp_of_pixel``: the kernels' 8x8 patches, the
+    thread-per-pixel rows before) [(warp, entry) steps with a live lane,
+    all (warp, entry) steps, their ratio]: the steps on which a warp runs
+    the live body, and the backward kernel its warp reduction."""
     import torch
 
     from vcr_gaus_tpu_torch.ops import projection as PF
@@ -608,8 +618,8 @@ def pair_census(feats, binn, batches, n_tx, width=None,
     gid = binn.sorted_gid.to(torch.int64)
     starts = binn.tile_starts.to(torch.int64)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)
-    maps = {"rows16x2_P1": warp_of_pixel(False).to(dev),
-            "patch8x8_P2": warp_of_pixel(True).to(dev)}
+    maps = {"rows16x2_P1": R.warp_of_pixel(False).to(dev),
+            "patch8x8_P2": R.warp_of_pixel(True).to(dev)}
     steps = {k: torch.zeros(2, dtype=torch.int64, device=dev) for k in maps}
     for k in range(int(batches.max())):
         busy = torch.nonzero(batches > k).squeeze(1)
@@ -759,21 +769,13 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
         if not torch.equal(batches[ids.to(batches.device)], want_b):
             raise AssertionError("batches composited differ on the full view")
 
-        # the least time for the same work, from this run's data: the pairs
-        # of the entries each tile composited before its stop, 256 pixels
-        # each, at the operations their outcome needs; bytes: their gids,
-        # each gaussian's feature row read once, the tile ranges, and the
-        # image written once
+        # the least time for the same work, from this run's data
         composited, rows = composited_census(binn, batches)
         pairs, power_pass, live, warp_steps = pair_census(feats, binn,
                                                           batches, n_tx)
-        ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
-               + (OPS_LIVE + OPS_LIVE_SEM * ch_sem
-                  + OPS_LIVE_INTERSECT * (mode == "intersection")) * live)
-        flop_s = ops / PEAK_FP32
-        nbytes = (4 * composited + 4 * feats.shape[1] * rows
-                  + 8 * binn.tile_counts.numel() + h * w * 4 * (9 + ch_sem))
-        byte_s = nbytes / PEAK_BYTES
+        ops, flop_s, byte_s = fwd_bound(feats, binn, composited, rows,
+                                        pairs, power_pass, live, w, h,
+                                        ch_sem, mode)
         bound_ms = 1e3 * max(flop_s, byte_s)
 
         # end-to-end render time per view on the loaded model
@@ -1028,6 +1030,10 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
                   + 4 * feats.shape[0] * (feats.shape[1] + 2))
         byte_s = nbytes / PEAK_BYTES
         bound_ms = 1e3 * max(flop_s, byte_s)
+        # the forward kernel's bound on the same view
+        fwd_ops, fwd_flop_s, fwd_byte_s = fwd_bound(
+            feats, binn, composited, rows, pairs, power_pass, live, w, h,
+            ch_sem, mode)
 
     emit(phase="train_step", gaussians=state.num_active, width=width,
          height=height, scale_mult=scale_mult, weights=DTU_FULL_WEIGHTS,
@@ -1037,6 +1043,10 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
          entries=aux["num_entries"], composited_entries=composited,
          pairs=pairs, pairs_past_power_test=power_pass, live_pairs=live,
          bwd_kernel_ms=kernel_ms, fwd_kernel_ms=fwd_kernel_ms,
+         fwd_bound_ops=fwd_ops,
+         fwd_bound_ms=1e3 * max(fwd_flop_s, fwd_byte_s),
+         fwd_bound_flop_ms=1e3 * fwd_flop_s,
+         fwd_bound_byte_ms=1e3 * fwd_byte_s,
          warp_steps_live=warp_steps,
          bwd_plain_ms=plain_ms, bwd_bound_ops=ops,
          bwd_bound_ms=bound_ms, bwd_bound_flop_ms=1e3 * flop_s,
@@ -1074,6 +1084,23 @@ def schedule_launches(trainer, first: int, last: int,
     return want
 
 
+def host_loop_args(scene, device, iters, capacity) -> list[str]:
+    """The train CLI's arguments of phase host_loop's run: the DTU recipe
+    with its schedule compressed (densify after 20, 30 and 40, opacity
+    resets at 20 and 40, the prune at 30, a checkpoint at 20, test and
+    save at the last iteration)."""
+    return ["--config", os.path.join(REPO, "configs", "dtu", "base.yaml"),
+            "--device", str(device), f"--model.source_path={scene}",
+            f"--optim.iterations={iters}", "--optim.densify_from_iter=10",
+            "--optim.densification_interval=10",
+            "--optim.opacity_reset_interval=20",
+            "--optim.prune.iterations=[30]",
+            f"--train.test_iterations=[{iters}]",
+            f"--train.save_iterations=[{iters}]",
+            "--train.checkpoint_iterations=[20]",
+            f"--tpu.capacity={capacity}"]
+
+
 def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
                     n_views=8, iters=40, resume_iters=4, capacity=1 << 21,
                     timing_iters=20) -> dict:
@@ -1094,16 +1121,7 @@ def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
         scene = write_train_scene(root, n_gauss, width, height, n_views)
         setup_s = time.perf_counter() - t0
         logdir = os.path.join(root, "run")
-        args = ["--config", os.path.join(REPO, "configs", "dtu", "base.yaml"),
-                "--device", str(device), f"--model.source_path={scene}",
-                f"--optim.iterations={iters}", "--optim.densify_from_iter=10",
-                "--optim.densification_interval=10",
-                "--optim.opacity_reset_interval=20",
-                "--optim.prune.iterations=[30]",
-                f"--train.test_iterations=[{iters}]",
-                f"--train.save_iterations=[{iters}]",
-                "--train.checkpoint_iterations=[20]",
-                f"--tpu.capacity={capacity}"]
+        args = host_loop_args(scene, device, iters, capacity)
 
         # the largest active opacity right after each opacity reset
         resets = []
@@ -1329,7 +1347,8 @@ def stats_kernel_numbers(feats, binn, w, h, timing_iters) -> dict:
         raise AssertionError("full-width stats: hit counts differ")
     torch.testing.assert_close(got[:, 1], want[:, 1], **FWD)
     walked, rows = composited_census(binn, batches)
-    pairs, power_pass, live, _ = pair_census(feats, binn, batches, n_tx, w, h)
+    pairs, power_pass, live, warp_steps = pair_census(feats, binn, batches,
+                                                      n_tx, w, h)
     ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
            + OPS_STATS_LIVE * live)
     flop_s = ops / PEAK_FP32
@@ -1345,7 +1364,7 @@ def stats_kernel_numbers(feats, binn, w, h, timing_iters) -> dict:
                 bound_flop_ms=1e3 * flop_s, bound_byte_ms=1e3 * byte_s,
                 bound_by="operations" if flop_s >= byte_s else "bytes",
                 feature_rows_read=rows, live_share=live / max(pairs, 1),
-                **live_area_census(feats, binn),
+                warp_steps_live=warp_steps, **live_area_census(feats, binn),
                 imp_max_abs_err=float((got[:, 1] - want[:, 1]).abs().max()))
 
 
@@ -1422,6 +1441,9 @@ def phase_microprobe(device, protocol=None, small_tiles=8,
     emit(phase="microprobe", shape=res["shape"], pairs=res["pairs"],
          main_s=main_s, launches=launches, reps=res["reps"],
          full_ms=f["ms"], full_bound_ms=f["bound_ms"], plain_ms=plain_ms,
+         full_census={k: f[k] for k in (
+             "live_share", "warp_live_share", "busiest_warp_live_share",
+             "rows_warp_live_share", "rows_busiest_warp_live_share")},
          check_tiles=check_tiles, check_err_and_max_per_channel=check_err,
          library_ms=None)
     return dict(launches=launches["kernel_microprobe"], kernel_ms=f["ms"],

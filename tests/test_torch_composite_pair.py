@@ -1,19 +1,46 @@
-"""What the card checks of the forward and backward kernels rest on, checked
-on the CPU: chip_smoke.py's mirror of the kernels' pixel-to-thread map
-(csrc/composite_pair.cuh, used to count warp steps), the scene whose pairs
-sit at the dead-pair threshold, and the kernel build's key, which must
-change with the shared header."""
+"""What the card checks of the kernels that share csrc/composite_pair.cuh
+rest on, checked on the CPU: the mirror of its pixel-to-thread map in
+ops/rasterize.warp_of_pixel (used to count warp steps on the kernels' 16x16
+tiles and the microprobe's 32x32 tiles), the scene whose pairs sit at the
+dead-pair threshold, and the kernel build's key, which must change with the
+shared header."""
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import threshold_scene, warp_of_pixel
+from chip_smoke import threshold_scene
 from vcr_gaus_tpu_torch.ops import cuda_build
+from vcr_gaus_tpu_torch.ops import microprobe as M
 from vcr_gaus_tpu_torch.ops import projection as PF
+from vcr_gaus_tpu_torch.ops.rasterize import warp_of_pixel
 from vcr_gaus_tpu_torch.ops.rasterize_ref import ALPHA_EPS
 
 DEAD_MARGIN = 1e-3     # csrc/composite_pair.cuh
+
+
+@pytest.mark.parametrize("patches", [False, True])
+def test_microprobe_warp_map_covers_the_tile_in_patches(patches):
+    """The microprobe's 32x32 tile, as ops/microprobe.pair_census maps it:
+    every pixel in exactly one warp, sixteen 8x8 patches of 64 pixels under
+    the kernel's map (2 pixels a thread, 512 threads; warp w's patch at
+    column 8 (w % 4), row 8 (w // 4), as TilePixelMap<32>::first lays the
+    threads out), thirty-two rows of 32 pixels under a thread per pixel."""
+    warp = warp_of_pixel(patches, M.TILE)
+    n, size = (16, 64) if patches else (32, 32)
+    assert warp.shape == (M.P,)
+    assert torch.bincount(warp).tolist() == [size] * n
+    pix = torch.arange(M.P)
+    x, y = pix % M.TILE, pix // M.TILE
+    for w in range(n):
+        xs, ys = x[warp == w], y[warp == w]
+        x0, y0 = int(xs.min()), int(ys.min())
+        if patches:
+            assert (x0, y0) == (8 * (w % 4), 8 * (w // 4))
+            assert set(zip(xs.tolist(), ys.tolist())) == {
+                (x0 + i, y0 + j) for i in range(8) for j in range(8)}
+        else:
+            assert (x0, int(xs.max()), y0, int(ys.max())) == (0, 31, w, w)
 
 
 @pytest.mark.parametrize("patches", [False, True])
@@ -59,20 +86,20 @@ def test_threshold_scene_spans_the_dead_pair_threshold():
     assert (radius == 4).all() and np.isin(feats[:, 0], np.arange(45)).all()
 
 
-def test_kernel_build_key_follows_the_shared_header(tmp_path, monkeypatch):
-    """A change to csrc/composite_pair.cuh rebuilds both compositing
-    kernels: the library's name hashes the headers beside the source."""
-    for name in ("rasterize_fwd.cu", "rasterize_bwd.cu"):
-        assert '#include "composite_pair.cuh"' in (
-            cuda_build.CSRC / name).read_text()
+@pytest.mark.parametrize("name", ["rasterize_fwd", "rasterize_bwd",
+                                  "rasterize_stats", "kernel_microprobe"])
+def test_kernel_build_key_follows_the_shared_header(tmp_path, monkeypatch,
+                                                    name):
+    """Every kernel that includes csrc/composite_pair.cuh is rebuilt when
+    it changes: the library's name hashes the headers beside the source."""
+    assert '#include "composite_pair.cuh"' in (
+        cuda_build.CSRC / cuda_build.SOURCES[name]).read_text()
     src = tmp_path / "csrc"
     src.mkdir()
     for f in cuda_build.CSRC.iterdir():
         (src / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC", src)
-    before = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    before = cuda_build.library_path(name)
     with open(src / "composite_pair.cuh", "a") as f:
         f.write("// edited\n")
-    after = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
-    assert before["rasterize_fwd"] != after["rasterize_fwd"]
-    assert before["rasterize_bwd"] != after["rasterize_bwd"]
+    assert cuda_build.library_path(name) != before

@@ -130,6 +130,24 @@ def test_rasterize_stats_matches_plain(cuda, case):
     assert err <= 2e-4
 
 
+def test_rasterize_stats_dead_pair_threshold(cuda):
+    # pairs within 4e-3 of the alpha threshold on both sides of the
+    # kernel's dead-pair threshold, on a ragged 45x29 image: the hit counts
+    # exactly equal, the importance at atol 2e-4, rtol 1e-3
+    feats, radius, _ = threshold_scene()
+    err, _, _ = compare_stats(feats, radius, 45, 29, cuda)
+    assert err <= 2e-4
+
+
+@pytest.mark.parametrize("seed", [13, 16])
+def test_rasterize_stats_ragged_edges(cuda, seed):
+    # 45x29: the last tile column and row hold 13 pixels, so the pixel map
+    # has threads whose two pixels lie one inside and one outside the image
+    feats, radius, _ = splat_scene(n=250, seed=seed, width=45, height=29)
+    err, _, _ = compare_stats(feats, radius, 45, 29, cuda)
+    assert err <= 2e-4
+
+
 def test_rasterize_stats_saturated_and_ragged(cuda):
     feats, radius, cam = saturated_scene()
     _, batches, held = compare_stats(feats, radius, 40, 24, cuda)

@@ -13,14 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import saturated_scene, splat_scene
+from chip_smoke import saturated_scene, splat_scene, threshold_scene
 from test_renderer import make_scene
 from test_torch_render import port_camera, to_port
 from vcr_gaus_tpu.ops import rasterize as JR
 from vcr_gaus_tpu.render.renderer import RenderConfig as JRenderConfig
 from vcr_gaus_tpu.render.renderer import render_stats as jrender_stats
 from vcr_gaus_tpu_torch.ops import binning as B
+from vcr_gaus_tpu_torch.ops import projection as PF
 from vcr_gaus_tpu_torch.ops import rasterize as R
+from vcr_gaus_tpu_torch.ops.rasterize_ref import ALPHA_EPS
 from vcr_gaus_tpu_torch.render.renderer import RenderConfig, render_stats
 
 FWD = dict(atol=2e-4, rtol=1e-3)
@@ -74,6 +76,28 @@ def test_entry_stats_match_jax(case):
         assert float(got[0].abs().sum() + got[1].abs().sum()) == 0.0
     else:
         assert float(got[0].sum()) > 0 and float(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_entry_stats_at_the_dead_pair_threshold_match_jax(seed):
+    """The scene whose pairs lie within 4e-3 of the alpha threshold, on
+    both sides of the kernel's dead-pair threshold, on a ragged 45x29
+    image: the plain version the card holds the stats kernel against
+    there, against the JAX stats kernel. Every band of pairs is hit."""
+    feats, radius, _ = threshold_scene(seed=seed)
+    got = port_entry_stats(feats, radius, 45, 29)
+    assert_stats_match(got, jax_entry_stats(feats, radius, 45, 29))
+    # a splat 2 pixels clear of the edges hits the 13 pixels within
+    # squared distance 4 of its centre, and its ring of 8 at squared
+    # distance 5 exactly when the power there is above the alpha threshold
+    f = torch.from_numpy(feats)
+    power = -0.5 * (f[:, PF.F_CONIC_A] + 4.0 * f[:, PF.F_CONIC_C])
+    ring = f[:, PF.F_OPACITY] * torch.exp(power) >= ALPHA_EPS
+    inner = ((f[:, 0] >= 2) & (f[:, 0] <= 42) & (f[:, 1] >= 2)
+             & (f[:, 1] <= 26))
+    assert 0 < int((inner & ring).sum()) < int(inner.sum())
+    torch.testing.assert_close(got[0][inner], 13.0 + 8.0 * ring[inner],
+                               rtol=0, atol=0)
 
 
 def test_saturated_tile_stops_early_and_ragged_tile_does_not():

@@ -1,13 +1,15 @@
-// The per-pair front end shared by the forward and backward compositing
-// kernels (rasterize_fwd.cu, rasterize_bwd.cu): the tile geometry, the
-// pixel-to-thread map, the power of a (pixel, entry) pair, its liveness test
-// with the dead-pair threshold, its alpha, and its depth. Both kernels
+// The per-pair front end shared by the compositing kernels
+// (rasterize_fwd.cu, rasterize_bwd.cu), the stats kernel
+// (rasterize_stats.cu) and the forward-loop microprobe
+// (kernel_microprobe.cu): the tile geometry, the pixel-to-thread map, an
+// entry's staged words, the power of a (pixel, entry) pair, its liveness
+// test with the dead-pair threshold, its alpha, and its depth. The kernels
 // include this one header, so the liveness tests, alpha and T of the
-// backward round exactly as in the forward: the backward recomputes T front
-// to back, and a test flipped near alpha = 1/255 would move a weight by up
-// to T/255. Every expression here is the plain PyTorch version's
-// (ops/rasterize.py `_batch_pairs`), in its order, and the kernels are built
-// with --fmad=false, so nothing is fused.
+// backward and the stats kernel round exactly as in the forward: they
+// recompute T front to back, and a test flipped near alpha = 1/255 would
+// move a weight by up to T/255. Every expression here is the plain PyTorch
+// version's (ops/rasterize.py `_batch_pairs`), in its order, and the
+// kernels are built with --fmad=false, so nothing is fused.
 //
 // The dead-pair threshold. A pair is live iff power <= 0 and
 // opacity * expf(power) >= ALPHA_EPS. At staging each entry gets
@@ -49,29 +51,44 @@ constexpr int F_MEAN_X = 0, F_MEAN_Y = 1, F_CONIC_A = 2, F_CONIC_B = 3,
               F_CONIC_C = 4, F_OPACITY = 5, F_DEPTH_Z = 6, F_PLANE_D = 7,
               F_NORMAL = 8, F_RGB = 11, F_SEM = 14;
 
-// The pixel-to-thread map: P = 2 pixels a thread, 128 threads a tile. Each
-// warp covers a compact 8x8 patch of the tile, its lanes an 8x4 block of
-// it, and a thread's two pixels share their column, LY = 4 rows apart. A
-// compact patch keeps a warp clear of the entries that touch none of its
-// pixels: a Gaussian's footprint is a blob, and the old map's 16x2 strips
-// met more of them (chip_smoke.py counts the warp steps with a live lane
-// under both maps). Four pixels a thread on 16x8 patches ran 1.2-1.3x
-// slower in both kernels on the card (PERF.md).
-struct PixelMap {
+// The pixel-to-thread map of a SIDE x SIDE tile: P = 2 pixels a thread,
+// SIDE^2 / 2 threads. Each warp covers a compact 8x8 patch of the tile, its
+// lanes an 8x4 block of it, and a thread's two pixels share their column,
+// LY = 4 rows apart. A compact patch keeps a warp clear of the entries
+// that touch none of its pixels: a Gaussian's footprint is a blob, and the
+// old map's 16x2 strips met more of them (chip_smoke.py counts the warp
+// steps with a live lane under both maps). Four pixels a thread on 16x8
+// patches ran 1.2-1.3x slower in both compositing kernels on the card
+// (PERF.md). The kernels' 16x16 tiles take 128 threads; the microprobe's
+// 32x32 tiles 512.
+template <int SIDE>
+struct TilePixelMap {
     static constexpr int P = 2;
-    static constexpr int THREADS = TILE_PIX / P;
+    static constexpr int THREADS = SIDE * SIDE / P;
     static constexpr int WARPS = THREADS / 32;
     static constexpr int WX = 8;                 // patch width
     static constexpr int WY = 32 * P / WX;       // patch height
     static constexpr int LY = 32 / WX;           // rows between own pixels
+    static_assert(SIDE % WX == 0 && SIDE % WY == 0, "whole patches");
 
     // the tile-local column and first row of thread `tid`'s pixels
     static __device__ __forceinline__ void first(int tid, int& x, int& y0)
     {
         const int warp = tid >> 5, lane = tid & 31;
-        x = (warp % (TILE / WX)) * WX + lane % WX;
-        y0 = (warp / (TILE / WX)) * WY + lane / WX;
+        x = (warp % (SIDE / WX)) * WX + lane % WX;
+        y0 = (warp / (SIDE / WX)) * WY + lane / WX;
     }
+};
+using PixelMap = TilePixelMap<TILE>;
+
+// an entry's staged words: the front end every pair reads, as two 16-byte
+// shared-memory broadcasts a thread serves its 2 pixels from
+struct __align__(16) Front {
+    float mx, my, a, b;
+};
+struct __align__(16) Front2 {
+    float c, thr, op, d;    // thr: dead_threshold(op); d: depth_z, or
+                            // plane_d in intersection mode
 };
 
 // the Gaussian's power at offset (dx, dy) from its mean
@@ -87,11 +104,18 @@ __device__ __forceinline__ float dead_threshold(float opacity)
     return logf(ALPHA_EPS / opacity) - DEAD_MARGIN;
 }
 
+// false iff the pair is certainly dead: power > 0 (or NaN), or below the
+// entry's dead-pair threshold; else the exact test decides
+__device__ __forceinline__ bool pair_near(float power, float thr)
+{
+    return power <= 0.f && !(power < thr);
+}
+
 // true iff the pair is live; then alpha_raw = opacity * expf(power)
 __device__ __forceinline__ bool pair_live(float power, float thr,
                                           float opacity, float& alpha_raw)
 {
-    if (!(power <= 0.f) || power < thr) return false;
+    if (!pair_near(power, thr)) return false;
     alpha_raw = opacity * expf(power);
     return alpha_raw >= ALPHA_EPS;
 }

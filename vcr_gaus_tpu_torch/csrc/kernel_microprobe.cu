@@ -5,35 +5,53 @@
 // computes each variant's function as vcr_gaus_tpu_torch/ops/microprobe.py
 // defines it, not a copy of the TPU blocks: the triangular matmuls of the
 // transmittance prefix become a running sum per pixel, the DMA double buffer
-// a ring of cp.async stages. Its purpose is to attribute the cost of a
-// K1-shaped CUDA loop (csrc/rasterize_fwd.cu: a block per tile, a thread per
-// pixel, entries staged in shared memory, dead pairs skipped) on the card,
-// component by component: the transcendentals, the running prefix, the
-// channel accumulation, the depth block, staging depth, chunk size, unroll.
-//
-// Design:
-//   * one block per 32x32 tile, 1024 threads, one per pixel. A thread per
-//     pixel is K1's shape: every pair costs a thread one broadcast
-//     shared-memory read per feature row it uses, as in K1. Four pixels per
-//     thread would share those reads and probe a loop K1 does not run;
-//   * each thread keeps the chunk's running log-prefix and the 9 non-zero
-//     channels in registers; the prefix restarts at every chunk, as the
-//     probe's transmittance does;
+// a ring of cp.async stages. Its purpose is to attribute the cost of the
+// forward kernel's loop (csrc/rasterize_fwd.cu) on the card, component by
+// component: the transcendentals, the running prefix, the channel
+// accumulation, the depth block, staging depth, chunk size, unroll. So it
+// runs that loop's shape:
+//   * one block per 32x32 tile, 2 pixels a thread (512 threads, 16 warps)
+//     on the 8x8 warp patches of composite_pair.cuh's TilePixelMap: a
+//     thread's two pixels share their column and so the x offset;
 //   * rows 0..11 of each chunk (the only rows the body reads) are staged in
 //     shared memory, 12 x Gc floats a stage, in a ring of `depth` stages
 //     filled by 16-byte cp.async copies with depth - 1 chunks in flight:
-//     the counterpart of the TPU's DMA ring. A stage is 6-24 KB, and the
-//     ring (up to 96 KB for depth 4 at Gc 512) is dynamic shared memory;
+//     the counterpart of the TPU's DMA ring (a stage is 6-24 KB, the ring
+//     up to 96 KB for depth 4 at Gc 512);
+//   * once a chunk's copies have landed, one pass of the block repacks each
+//     entry's front end into the forward kernel's two 16-byte words (mean,
+//     conic, the dead-pair threshold, the opacity, the depth; 8-16 KB
+//     more), so a pair reads two broadcasts, not six scalars. The
+//     exponential-alpha variants take the forward kernel's dead-pair
+//     threshold and live test (`pair_near`, then the exact test), which
+//     never change a pair's outcome; no_exp's linear test and the variants
+//     without alpha keep their exact, test-free paths. The normal and
+//     accumulated rows are read from the stage, once for both pixels, only
+//     when one is live;
+//   * a thread's two pixels run their tests, alphas and live bodies
+//     without a branch between them (a dead pixel of a live step takes
+//     alpha = 0, which adds nothing), so that their chains overlap: on the
+//     probe's inputs every Gaussian sits at a tile's corner, so one warp
+//     of every tile has a live lane on every entry. Here alone it departs
+//     from the forward kernel, which branches per pixel;
+//   * the block meets at three barriers a chunk (before the refill, after
+//     the copies land, after the repack), each over 16 warps, and
+//     __launch_bounds__(512, 2) holds a thread to 64 registers, so that two
+//     tiles share an SM: a tile's time is its busiest warp's serial walk;
+//   * each thread keeps its pixels' running log-prefix and 9 non-zero
+//     channels in registers; the prefix restarts at every chunk, as the
+//     probe's transmittance does;
 //   * the switches, Gc, depth and unroll are template parameters; unroll
 //     steps `unroll` guarded chunk bodies per loop iteration, as the script
 //     does. The 14 variants of ops/microprobe.VARIANTS are instantiated;
-//   * a pair that fails a live test is skipped (`continue`), as in K1. The
-//     TPU loop is branchless, so the card's ablation deltas have to be read
-//     with each variant's live share: on the probe's inputs 2.3% of the
-//     pairs are live with the exponential alpha and 29.9% with the linear
-//     one (no_exp);
-//   * built with --fmad=false, so the liveness tests round as in the plain
-//     version.
+//   * a thread skips an entry on which neither of its pixels is live, as
+//     the forward kernel does. The TPU loop is branchless, so the card's
+//     ablation deltas have to be read with each variant's live share: on
+//     the probe's inputs 2.3% of the pairs are live with the exponential
+//     alpha and 29.9% with the linear one (no_exp);
+//   * the accumulations take explicit fmaf and the depth __fdividef (2 ulp
+//     where |denom| >= 1e-2), as in the forward kernel; built with
+//     --fmad=false, so the liveness tests round as in the plain version.
 //
 // What bounds it: operations, not bytes. At the protocol shape (1900 tiles
 // x 1536 entries x 1024 pixels = 2.99G pairs) it reads 12 rows x 4 B x
@@ -45,20 +63,29 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "composite_pair.cuh"
+
 namespace {
 
-constexpr int TILE = 32;
-constexpr int P = TILE * TILE;       // one thread per pixel
+constexpr int SIDE = 32;
+constexpr int NPIX = SIDE * SIDE;
+using Map = vcr::TilePixelMap<SIDE>;
+constexpr int THREADS = Map::THREADS;
+constexpr int P = Map::P;
 constexpr int NROW = 12;             // feature rows the body reads
 constexpr int OUT_CH = 10;
-constexpr float ALPHA_EPS = 1.0f / 255.0f;
-constexpr float ALPHA_CAP = 0.99f;
-constexpr float DENOM_EPS = 1e-2f;
 
 // feature rows: mean x, y, conic a, b, c, opacity, then depth (also the
 // first accumulated row) and the normal
 constexpr int R_MX = 0, R_MY = 1, R_A = 2, R_B = 3, R_C = 4, R_OP = 5,
               R_DZ = 6, R_N = 7;
+
+template <int DEPTH, int GC>
+constexpr int shared_bytes()
+{
+    return DEPTH * NROW * GC * (int)sizeof(float)
+           + GC * (int)(sizeof(vcr::Front) + sizeof(vcr::Front2));
+}
 
 // Start the copies of rows 0..11 of columns [col0, col0 + GC) into one
 // stage; each thread issues its share of the 16-byte pieces.
@@ -69,7 +96,7 @@ __device__ __forceinline__ void stage_chunk(float* dst,
                                             int tid)
 {
     constexpr int PER_ROW = GC / 4;
-    for (int i = tid; i < NROW * PER_ROW; i += P) {
+    for (int i = tid; i < NROW * PER_ROW; i += THREADS) {
         const int r = i / PER_ROW;
         const int q = i - r * PER_ROW;
         __pipeline_memcpy_async(dst + r * GC + 4 * q,
@@ -79,35 +106,50 @@ __device__ __forceinline__ void stage_chunk(float* dst,
 
 template <bool DEPTH_ON, bool TRI, bool DACC, bool EXP, bool ALPHA,
           int DEPTH, int GC, int UNROLL>
-__global__ void __launch_bounds__(P)
+__global__ void __launch_bounds__(THREADS, 2)
 kernel_microprobe(const float* __restrict__ feats,  // (24, e)
                   long long e,
                   const int* __restrict__ starts,
                   const int* __restrict__ counts,
                   float* __restrict__ out)          // (tiles, 1024, 10)
 {
-    extern __shared__ __align__(16) float ring[];   // DEPTH x NROW x GC
+    constexpr bool EXP_ALPHA = EXP && ALPHA;
+    extern __shared__ __align__(16) float smem[];
+    float* ring = smem;                              // DEPTH x NROW x GC
+    vcr::Front* s0 = reinterpret_cast<vcr::Front*>(ring + DEPTH * NROW * GC);
+    vcr::Front2* s1 = reinterpret_cast<vcr::Front2*>(s0 + GC);
 
     const int t = blockIdx.x;
     const int tid = threadIdx.x;
-    const float px = (float)(tid % TILE);
-    const float py = (float)(tid / TILE);
+    int lx, ly0;
+    Map::first(tid, lx, ly0);
+    const float px = (float)lx;
     const long long start = starts[t];
     const int nchunks = counts[t] / GC;
 
-    // the unit ray through the pixel's centre, scaled as the probe does
-    float rx = 0.f, ry = 0.f, rz = 0.f;
-    if (DEPTH_ON) {
-        const float dirx = (px + 0.5f - 16.0f) / 30.0f;
-        const float diry = (py + 0.5f - 16.0f) / 30.0f;
-        const float inv_n = rsqrtf(dirx * dirx + diry * diry + 1.0f);
-        rx = dirx * inv_n;
-        ry = diry * inv_n;
-        rz = inv_n;
+    // each pixel's unit ray through its centre, scaled as the probe does
+    float py[P], rx[P], ry[P], rz[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+        py[k] = (float)(ly0 + k * Map::LY);
+        rx[k] = ry[k] = rz[k] = 0.f;
+        if (DEPTH_ON) {
+            const float dirx = (px + 0.5f - 16.0f) / 30.0f;
+            const float diry = (py[k] + 0.5f - 16.0f) / 30.0f;
+            const float inv_n = rsqrtf(dirx * dirx + diry * diry + 1.0f);
+            rx[k] = dirx * inv_n;
+            ry[k] = diry * inv_n;
+            rz[k] = inv_n;
+        }
     }
 
-    float acc_csum = 0.f, acc_wd = 0.f, acc_wd2 = 0.f;
-    float acc_f[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float acc_csum[P], acc_wd[P], acc_wd2[P], acc_f[P][6];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+        acc_csum[k] = acc_wd[k] = acc_wd2[k] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc_f[k][c] = 0.f;
+    }
 
     // keep depth - 1 chunks in flight; one commit group per chunk (empty
     // past the tile's last), so that chunk k is group k
@@ -121,7 +163,7 @@ kernel_microprobe(const float* __restrict__ feats,  // (24, e)
 
     auto body = [&](int k) {
         // every thread is done with chunk k - 1, whose stage the next copy
-        // refills
+        // refills and whose words the repack overwrites
         __syncthreads();
         const int kn = k + DEPTH - 1;
         if (kn < nchunks)
@@ -132,55 +174,110 @@ kernel_microprobe(const float* __restrict__ feats,  // (24, e)
         __syncthreads();
 
         const float* f = ring + (k % DEPTH) * NROW * GC;
-        // the running prefix (use_tri), else the last live entry's lg and
-        // its index: a dead pair has lg = 0 and adds nothing to either
-        float s = 0.f;
-        int j_last = -1;
-        for (int j = 0; j < GC; ++j) {
-            float alpha;
-            if (ALPHA) {
-                const float dx = px - f[R_MX * GC + j];
-                const float dy = py - f[R_MY * GC + j];
-                const float power = -0.5f * (f[R_A * GC + j] * dx * dx
-                                             + f[R_C * GC + j] * dy * dy)
-                                    - f[R_B * GC + j] * dx * dy;
-                if (!(power <= 0.f)) continue;
-                const float alpha_raw =
-                    EXP ? f[R_OP * GC + j] * expf(power)
-                        : f[R_OP * GC + j] * (1.0f + power * 0.01f);
-                if (!(alpha_raw >= ALPHA_EPS)) continue;
-                alpha = fminf(alpha_raw, ALPHA_CAP);
-            } else {
-                alpha = f[R_OP * GC + j] * 0.001f;
-            }
-            const float lg = (EXP && ALPHA) ? log1pf(-alpha) : -alpha;
-            if (TRI) {
-                s += lg;
-            } else {
-                s = lg;
-                j_last = j;
-            }
-            const float w = (EXP && ALPHA) ? alpha * expf(s - lg)
-                                           : alpha * (s - lg + 1.0f);
-            if (DACC) {
+        for (int j = tid; j < GC; j += THREADS) {
+            const float op = f[R_OP * GC + j];
+            if (ALPHA)
+                s0[j] = vcr::Front{f[R_MX * GC + j], f[R_MY * GC + j],
+                                   f[R_A * GC + j], f[R_B * GC + j]};
+            s1[j] = vcr::Front2{ALPHA ? f[R_C * GC + j] : 0.f,
+                                EXP_ALPHA ? vcr::dead_threshold(op) : 0.f,
+                                op, f[R_DZ * GC + j]};
+        }
+        __syncthreads();
+
+        // the running prefix (use_tri), else the lg of the last entry the
+        // warp composited and its index (a dead pixel's lg is 0)
+        float s[P];
+        int j_last[P];
 #pragma unroll
-                for (int c = 0; c < 6; ++c)
-                    acc_f[c] += w * f[(R_DZ + c) * GC + j];
+        for (int q = 0; q < P; ++q) s[q] = 0.f, j_last[q] = -1;
+        for (int j = 0; j < GC; ++j) {
+            const vcr::Front2 f1 = s1[j];
+            float alpha[P];
+            bool live[P];
+            if (ALPHA) {
+                const vcr::Front f0 = s0[j];
+                const float dx = px - f0.mx;
+                float power[P], alpha_raw[P];
+                bool near[P];
+                bool any_near = false;
+#pragma unroll
+                for (int q = 0; q < P; ++q) {
+                    power[q] = vcr::pair_power(dx, py[q] - f0.my, f0.a, f0.b,
+                                               f1.c);
+                    // the linear alpha has no threshold: its test is exact
+                    near[q] = EXP ? vcr::pair_near(power[q], f1.thr)
+                                  : power[q] <= 0.f;
+                    any_near |= near[q];
+                }
+                if (!any_near) continue;
+                // both pixels' alphas without a branch between them
+                bool any = false;
+#pragma unroll
+                for (int q = 0; q < P; ++q) {
+                    alpha_raw[q] = EXP ? f1.op * expf(power[q])
+                                       : f1.op * (1.0f + power[q] * 0.01f);
+                    live[q] = near[q] && alpha_raw[q] >= vcr::ALPHA_EPS;
+                    alpha[q] = fminf(alpha_raw[q], vcr::ALPHA_CAP);
+                    any |= live[q];
+                }
+                if (!any) continue;
+            } else {
+#pragma unroll
+                for (int q = 0; q < P; ++q) {
+                    live[q] = true;
+                    alpha[q] = f1.op * 0.001f;
+                }
             }
-            float d = f[R_DZ * GC + j];
+            float nrm[3], racc[6];
             if (DEPTH_ON) {
-                float denom = rx * f[R_N * GC + j] + ry * f[(R_N + 1) * GC + j]
-                              + rz * f[(R_N + 2) * GC + j];
-                if (fabsf(denom) < DENOM_EPS) denom = DENOM_EPS;
-                d = d / denom;
+#pragma unroll
+                for (int c = 0; c < 3; ++c) nrm[c] = f[(R_N + c) * GC + j];
             }
-            const float wd = w * d;
-            acc_wd += wd;
-            acc_wd2 += wd * d;
+            if (DACC) {
+                racc[0] = f1.d;
+#pragma unroll
+                for (int c = 1; c < 6; ++c) racc[c] = f[(R_DZ + c) * GC + j];
+            }
+            // both pixels' live bodies without a branch between them, so
+            // that their chains overlap: a dead pixel of a live step takes
+            // alpha = 0, so lg = -0 and w = 0, which add nothing
+#pragma unroll
+            for (int q = 0; q < P; ++q) {
+                alpha[q] = live[q] ? alpha[q] : 0.f;
+                const float lg = EXP_ALPHA ? log1pf(-alpha[q]) : -alpha[q];
+                if (TRI) {
+                    s[q] += lg;
+                } else {
+                    s[q] = lg;
+                    j_last[q] = j;
+                }
+                const float w = EXP_ALPHA ? alpha[q] * expf(s[q] - lg)
+                                          : alpha[q] * (s[q] - lg + 1.0f);
+                if (DACC) {
+#pragma unroll
+                    for (int c = 0; c < 6; ++c)
+                        acc_f[q][c] = fmaf(w, racc[c], acc_f[q][c]);
+                }
+                float d = f1.d;
+                if (DEPTH_ON) {
+                    float denom = rx[q] * nrm[0] + ry[q] * nrm[1]
+                                  + rz[q] * nrm[2];
+                    // the probe's unsigned clamp, not clamped_denom's
+                    if (fabsf(denom) < vcr::DENOM_EPS)
+                        denom = vcr::DENOM_EPS;
+                    d = __fdividef(d, denom);
+                }
+                const float wd = w * d;
+                acc_wd[q] += wd;
+                acc_wd2[q] = fmaf(wd, d, acc_wd2[q]);
+            }
         }
         // channel 1 adds the chunk's last csum: the prefix, or the last
         // entry's own lg
-        acc_csum += (TRI || j_last == GC - 1) ? s : 0.f;
+#pragma unroll
+        for (int q = 0; q < P; ++q)
+            acc_csum[q] += (TRI || j_last[q] == GC - 1) ? s[q] : 0.f;
     };
 
     for (int k0 = 0; k0 < nchunks; k0 += UNROLL) {
@@ -189,13 +286,17 @@ kernel_microprobe(const float* __restrict__ feats,  // (24, e)
             if (k0 + i < nchunks) body(k0 + i);
     }
 
-    float* o = out + ((size_t)t * P + tid) * OUT_CH;
-    o[0] = 0.f;
-    o[1] = acc_csum;
-    o[2] = acc_wd;
-    o[3] = acc_wd2;
 #pragma unroll
-    for (int c = 0; c < 6; ++c) o[4 + c] = acc_f[c];
+    for (int q = 0; q < P; ++q) {
+        const int pix = (ly0 + q * Map::LY) * SIDE + lx;
+        float* o = out + ((size_t)t * NPIX + pix) * OUT_CH;
+        o[0] = 0.f;
+        o[1] = acc_csum[q];
+        o[2] = acc_wd[q];
+        o[3] = acc_wd2[q];
+#pragma unroll
+        for (int c = 0; c < 6; ++c) o[4 + c] = acc_f[q][c];
+    }
 }
 
 template <bool DEPTH_ON, bool TRI, bool DACC, bool EXP, bool ALPHA,
@@ -206,11 +307,11 @@ cudaError_t launch(const float* feats, long long e, const int* starts,
 {
     auto kern = kernel_microprobe<DEPTH_ON, TRI, DACC, EXP, ALPHA, DEPTH, GC,
                                   UNROLL>;
-    const int bytes = DEPTH * NROW * GC * (int)sizeof(float);
+    constexpr int bytes = shared_bytes<DEPTH, GC>();
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
-    kern<<<n_tiles, P, bytes, stream>>>(feats, e, starts, counts, out);
+    kern<<<n_tiles, THREADS, bytes, stream>>>(feats, e, starts, counts, out);
     return cudaGetLastError();
 }
 

@@ -75,13 +75,6 @@ namespace {
 
 using namespace vcr;
 
-struct __align__(16) Front {
-    float mx, my, a, b;
-};
-struct __align__(16) Front2 {
-    float c, thr, op, d;    // d: depth_z, or plane_d in intersection mode
-};
-
 // One step of the transpose reduction over a warp: H values kept of 2 H,
 // partner lane ^ O. The lane whose bit O is set keeps the upper half.
 template <int H, int O>

@@ -69,15 +69,6 @@ namespace {
 
 using namespace vcr;
 
-// an entry's staged words: the front end every pair reads, then the depth
-// and the composited columns a live pair reads
-struct __align__(16) Front {
-    float mx, my, a, b;
-};
-struct __align__(16) Front2 {
-    float c, thr, op, d;    // d: depth_z, or plane_d in intersection mode
-};
-
 template <int CH_SEM, bool INTERSECT>
 __global__ void __launch_bounds__(PixelMap::THREADS)
 rasterize_fwd_kernel(const float* __restrict__ feats,

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .rasterize import LAUNCHES
+from .rasterize import LAUNCHES, warp_of_pixel
 
 TILE = 32
 P = TILE * TILE           # pixels of a tile
@@ -223,32 +223,48 @@ def pair_census(feats: torch.Tensor, starts: torch.Tensor,
     """What a loop that skips dead pairs evaluates on these inputs:
     ``pairs``, ``past_power`` (pairs past the power test), ``live`` (live
     pairs; without use_alpha there is no test and every pair is live), and
-    in warps of 32 consecutive pixels (one pixel row of the tile) taking one
-    entry a step: ``warp_steps``, ``warp_steps_live`` (steps with a live
-    lane, which run the live body) and ``busiest_warp_live_steps`` (per
-    tile and chunk of 256 entries, those of the warp with the most, summed:
-    what a block that waits at every chunk for its slowest warp runs)."""
+    per map of pixels to warps that take one entry a step: ``warp_steps``,
+    ``warp_steps_live`` (steps with a live lane, which run the live body)
+    and ``busiest_warp_live_steps`` (per tile and chunk of 256 entries,
+    those of the warp with the most, summed: what a block that waits at
+    every chunk for its slowest warp runs). Those three keys count warps of
+    one pixel row (32 pixels, a thread per pixel); the same keys prefixed
+    ``patch_`` count the kernel's warps of 8x8 patches (64 pixels, 2 a
+    thread): ``rasterize.warp_of_pixel`` on a 32x32 tile."""
     _check(feats, starts, counts, G)
     entries = int(counts.to(torch.int64).sum())
-    warps = P // 32
-    out = dict(pairs=entries * P, past_power=entries * P, live=entries * P,
-               warp_steps=entries * warps, warp_steps_live=entries * warps,
-               busiest_warp_live_steps=entries)
+    maps = {"": warp_of_pixel(False, TILE),
+            "patch_": warp_of_pixel(True, TILE)}
+    n_warps = {pre: int(warp.max()) + 1 for pre, warp in maps.items()}
+    out = dict(pairs=entries * P, past_power=entries * P, live=entries * P)
+    for pre, warps in n_warps.items():
+        out.update({f"{pre}warp_steps": entries * warps,
+                    f"{pre}warp_steps_live": entries * warps,
+                    f"{pre}busiest_warp_live_steps": entries})
     if not use_alpha:
         return out
     px, py = _pixels(feats.device)
-    past = live = steps_live = busiest = 0
+    # pixels ordered by warp, so that a warp's pixels are consecutive
+    orders = {pre: torch.argsort(warp, stable=True).to(feats.device)
+              for pre, warp in maps.items()}
+    past = live = 0
+    steps_live = dict.fromkeys(maps, 0)
+    busiest = dict.fromkeys(maps, 0)
     for _, ok, f in _chunk_groups(feats, starts, counts, G):
         power, alpha_raw = _alpha_terms(f, px, py, use_exp)
         inside = ok[:, :, None, None]
         past += int(((power <= 0.0) & inside).sum())
         pl = (power <= 0.0) & (alpha_raw >= ALPHA_EPS) & inside
         live += int(pl.sum())
-        per_warp = pl.unflatten(2, (warps, 32)).any(3).sum(-1)  # (ng, k, 32)
-        steps_live += int(per_warp.sum())
-        busiest += int(per_warp.amax(-1).sum())
-    out.update(past_power=past, live=live, warp_steps_live=steps_live,
-               busiest_warp_live_steps=busiest)
+        for pre, order in orders.items():
+            per_warp = (pl[:, :, order].unflatten(2, (n_warps[pre], -1))
+                        .any(3).sum(-1))                    # (ng, k, warps)
+            steps_live[pre] += int(per_warp.sum())
+            busiest[pre] += int(per_warp.amax(-1).sum())
+    out.update(past_power=past, live=live)
+    for pre in maps:
+        out[f"{pre}warp_steps_live"] = steps_live[pre]
+        out[f"{pre}busiest_warp_live_steps"] = busiest[pre]
     return out
 
 

@@ -55,6 +55,17 @@ def reset_launch_counts() -> None:
     LAUNCHES.clear()
 
 
+def warp_of_pixel(patches: bool, side: int = TILE) -> torch.Tensor:
+    """(side^2,) warp of each pixel of a ``side`` x ``side`` tile
+    (row-major): under the kernels' pixel-to-thread map for ``patches``
+    (csrc/composite_pair.cuh's TilePixelMap: 2 pixels a thread, a warp on
+    each 8x8 patch), else under a thread per pixel (32 consecutive pixels a
+    warp), the map the kernels had before. Used to count warp steps."""
+    pix = torch.arange(side * side)
+    x, y = pix % side, pix // side
+    return (y // 8) * (side // 8) + x // 8 if patches else pix // 32
+
+
 def _tile_geometry(ids: torch.Tensor, n_tx: int, cam: torch.Tensor,
                    depth_mode: str):
     """(px, py, rays) of the tiles ``ids``: (T_sel, 256) integer pixel

@@ -12,13 +12,16 @@ in turn, 5 times, and its best time is kept, as the script does.
 Printed, one JSON line per variant: ``ms``, ``n_chunks``, ``us_per_chunk``
 (the script's summary), the share of its pairs that are live
 (``live_share``; the kernel skips the others), the share of warp steps
-(32 pixels, one entry) with a live lane (``warp_live_share``) and of the
-entries on which the busiest warp of a tile's chunk has one
-(``busiest_warp_live_share``), its FP32 operations per pair, the least
-time the card could take for its work (``bound_ms``, H100 SXM peaks) and
-``x_bound``. With ``--device cpu`` the plain version runs and its host
-time is ``cpu_ms``; the device metrics are null. The whole result, every
-timing included, is written to ``--out`` only.
+(one entry for the kernel's warp of an 8x8 patch, 2 pixels a thread) with
+a live lane (``warp_live_share``) and of the entries on which the busiest
+warp of a tile's chunk has one (``busiest_warp_live_share``), the same two
+for warps of one 32-pixel row, a thread per pixel, the kernel's map before
+(``rows_warp_live_share``, ``rows_busiest_warp_live_share``), its FP32
+operations per pair, the least time the card could take for its work
+(``bound_ms``, H100 SXM peaks) and ``x_bound``. With ``--device cpu`` the
+plain version runs and its host time is ``cpu_ms``; the device metrics are
+null. The whole result, every timing included, is written to ``--out``
+only.
 """
 
 from __future__ import annotations
@@ -156,12 +159,13 @@ def main(argv: list[str] | None = None) -> dict:
         b = bound(tg, c, args.n_tiles, entries)
         best = min(reps[name])
         row = dict(ms=None, n_chunks=n_chunks, us_per_chunk=None,
-                   live_share=c["live"] / max(c["pairs"], 1),
-                   warp_live_share=(c["warp_steps_live"]
-                                    / max(c["warp_steps"], 1)),
-                   busiest_warp_live_share=(c["busiest_warp_live_steps"]
-                                            / max(entries, 1)),
-                   **b, x_bound=None)
+                   live_share=c["live"] / max(c["pairs"], 1))
+        for pre, out in (("patch_", ""), ("", "rows_")):
+            row[f"{out}warp_live_share"] = (c[f"{pre}warp_steps_live"]
+                                            / max(c[f"{pre}warp_steps"], 1))
+            row[f"{out}busiest_warp_live_share"] = (
+                c[f"{pre}busiest_warp_live_steps"] / max(entries, 1))
+        row.update(**b, x_bound=None)
         if on_card:
             row.update(ms=best, us_per_chunk=best * 1e3 / n_chunks,
                        x_bound=best / b["bound_ms"])
