@@ -59,6 +59,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
              `full`'s warp steps with a live lane under the kernel's 8x8
              patches and under rows of 32 pixels; the plain version's
              time for `full` at the protocol shape;
+  7. mesh    the DTU protocol's meshing and scoring (scripts/run_dtu.py's
+             flags): a run of 1M flat opaque Gaussians tangent to the sphere
+             shell, 49 1600x1200 views on a cap around it, meta.json's box
+             1.1x the shell, through vcr_gaus_tpu_torch.depth2mesh's main
+             (outlier prune, the depth sweep through the forward kernel, a
+             501^3 TSDF grid on the card, marching tetrahedra and the
+             cleanup on the host), then a DTU instance (cameras.npz at 200
+             mm per unit, full-frame masks, an STL stand-in of 2M points on
+             the shell, an all-ones ObsMask, a ground plane) through
+             vcr_gaus_tpu_torch.eval_geometry's dtu path (cull, sampler,
+             downsample, Chamfer on the card); one forward launch per view,
+             the mesh's median radius within 2 voxels of the shell, the
+             Chamfer below 2 voxels in mm, the card's nearest neighbours on
+             200k x 200k points equal to scipy's cKDTree at rtol 1e-12, the
+             forward kernel on the sweep's first view against its plain
+             version on 64 tiles, and each stage's time;
 then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of vcr_gaus_tpu.
 """
@@ -409,10 +425,12 @@ def phase_kernel(device) -> tuple[float, float, float]:
     return worst, worst_bwd, worst_stats
 
 
-def write_colmap_views(scene, width, height, n_views, image_fn):
-    """COLMAP cameras of ``n_views`` ring views (bench.py's poses: identity
-    rotation, centers on a 0.3 ring, fovx 0.9, fovy 0.7) under ``scene``,
-    each with the (H, W, 3) uint8 image ``image_fn(i)``."""
+def write_colmap_views(scene, width, height, n_views, image_fn,
+                       poses=None):
+    """COLMAP cameras of ``n_views`` views under ``scene`` (fovx 0.9, fovy
+    0.7), each with the (H, W, 3) uint8 image ``image_fn(i)``: bench.py's
+    ring (identity rotation, centers on a 0.3 ring) or ``poses``, a list of
+    (qvec, tvec) world-to-camera poses."""
     from PIL import Image
 
     from vcr_gaus_tpu_torch.utils import colmap as CM
@@ -431,9 +449,10 @@ def write_colmap_views(scene, width, height, n_views, image_fn):
         ang = 2 * np.pi * i / n_views
         name = f"view_{i:03d}.png"
         Image.fromarray(image_fn(i)).save(os.path.join(scene, "images", name))
-        images[i + 1] = CM.ColmapImage(
-            i + 1, np.array([1.0, 0.0, 0.0, 0.0]),
-            np.array([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.0]), 1, name)
+        qvec, tvec = (poses[i] if poses is not None else (
+            np.array([1.0, 0.0, 0.0, 0.0]),
+            np.array([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.0])))
+        images[i + 1] = CM.ColmapImage(i + 1, qvec, tvec, 1, name)
     CM.write_images_binary(images, os.path.join(scene, "sparse", "0",
                                                 "images.bin"))
 
@@ -656,6 +675,37 @@ def pair_census(feats, binn, batches, n_tx, width=None,
     return pairs, passed, live, warp_steps
 
 
+def fwd_tile_check(call, n_tiles) -> float:
+    """The forward kernel's output of one recorded call, ``((feats, binn,
+    cam, w, h, ch_sem, mode), kw, (img, batches))``, against its plain
+    version on ``n_tiles`` random busy tiles: every channel at FWD and the
+    batch counts exactly. Returns the largest absolute error."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+
+    (feats, binn, cam, w, h, ch_sem, mode), _, (img, batches) = call
+    n_tx, _ = B.tile_grid(w, h)
+    gen = torch.Generator().manual_seed(0)
+    busy = torch.nonzero(binn.tile_counts > 0).squeeze(1).cpu()
+    ids = busy[torch.randperm(busy.numel(), generator=gen)[:n_tiles]]
+    tiles, want_b = R.composite_tiles_torch(
+        feats, binn.sorted_gid, binn.tile_starts, binn.tile_counts, cam,
+        n_tx, ch_sem, mode, tile_ids=ids)
+    err = 0.0
+    for k, t in enumerate(ids.tolist()):
+        y0, x0 = (t // n_tx) * R.TILE, (t % n_tx) * R.TILE
+        got = img[:, y0:y0 + R.TILE, x0:x0 + R.TILE]
+        want = tiles[k].reshape(-1, R.TILE, R.TILE)[:, :got.shape[1],
+                                                    :got.shape[2]]
+        torch.testing.assert_close(got, want, **FWD)
+        err = max(err, float((got - want).abs().max()))
+    if not torch.equal(batches[ids.to(batches.device)], want_b):
+        raise AssertionError("batches composited differ on the full view")
+    return err
+
+
 def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
                 n_views=8, n_check_tiles=64, timing_iters=20) -> dict:
     """Phase 3: the full-width render path through render_eval.main."""
@@ -752,22 +802,7 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
         kernel_ms = cuda_ms(kernel, iters=timing_iters)
         plain_ms = cuda_ms(plain, warmup=1, iters=3)
 
-        gen = torch.Generator().manual_seed(0)
-        busy = torch.nonzero(binn.tile_counts > 0).squeeze(1).cpu()
-        ids = busy[torch.randperm(busy.numel(), generator=gen)[:n_check_tiles]]
-        tiles, want_b = R.composite_tiles_torch(
-            feats, binn.sorted_gid, binn.tile_starts, binn.tile_counts, cam,
-            n_tx, ch_sem, mode, tile_ids=ids)
-        err = 0.0
-        for k, t in enumerate(ids.tolist()):
-            y0, x0 = (t // n_tx) * R.TILE, (t % n_tx) * R.TILE
-            got = img[:, y0:y0 + R.TILE, x0:x0 + R.TILE]
-            want = tiles[k].reshape(-1, R.TILE, R.TILE)[:, :got.shape[1],
-                                                        :got.shape[2]]
-            torch.testing.assert_close(got, want, **FWD)
-            err = max(err, float((got - want).abs().max()))
-        if not torch.equal(batches[ids.to(batches.device)], want_b):
-            raise AssertionError("batches composited differ on the full view")
+        err = fwd_tile_check(calls[0], n_check_tiles)
 
         # the least time for the same work, from this run's data
         composited, rows = composited_census(binn, batches)
@@ -1451,6 +1486,333 @@ def phase_microprobe(device, protocol=None, small_tiles=8,
                 bound_by=f["bound_by"], max_abs_err=max_err)
 
 
+# phase mesh: the DTU protocol's meshing and scoring (scripts/run_dtu.py's
+# depth2mesh and eval_geometry flags) on a scene of the protocol's shape
+DTU_VIEWS = 49                         # views of a DTU scan
+MESH_CENTER = np.array([0.0, 0.0, 4.0])  # bench.py's sphere shell
+MESH_RADIUS = 1.5
+MESH_BOX = 1.65                        # meta.json half-size: 1.1 x the shell
+# 2 x 1.65 / 500: a grid of ~501^3 voxels, the DTU protocol's count (a
+# meta box of scale ~1 at --voxel_size 0.004, scripts/run_dtu.py)
+MESH_VOXEL = 2 * MESH_BOX / 500
+MESH_MAX_DEPTH = 5.0                   # the cameras' distance 4 + 1
+MM_PER_UNIT = 200.0                    # scale_mat: normalized -> DTU mm
+MM_OFFSET = np.array([30.0, -20.0, 640.0])
+OBS_RES = 4.0                          # ObsMask voxel (mm)
+
+
+def dtu_poses(n_views, dist=4.0, spread=0.5):
+    """World-to-camera (R, T) of ``n_views`` cameras on an (azimuth,
+    elevation) grid of +-``spread`` radians around the shell's -z side, each
+    at ``dist`` from its center and looking at it, in COLMAP's axes (x
+    right, y down, z forward)."""
+    k = math.ceil(math.sqrt(n_views))
+    ang = np.linspace(-spread, spread, k)
+    poses = []
+    for el in ang:
+        for az in ang:
+            d = np.array([np.sin(az) * np.cos(el), np.sin(el),
+                          -np.cos(az) * np.cos(el)])
+            fwd = -d
+            right = np.cross([0.0, 1.0, 0.0], fwd)
+            right /= np.linalg.norm(right)
+            R = np.stack([right, np.cross(fwd, right), fwd])
+            poses.append((R, -R @ (MESH_CENTER + dist * d)))
+    return poses[:n_views]
+
+
+def flat_shell_params(rng, n):
+    """``n`` flat opaque Gaussians tangent to bench.py's sphere shell: the
+    shortest axis radial (1% of the tangent ones, which are 1.2x the mean
+    spacing), opacity 0.9, random colours, SH degree 3."""
+    pts, cols = sphere_shell(rng, n)
+    nrm = (pts - MESH_CENTER) / MESH_RADIUS
+    # the rotation taking the local z axis onto the normal
+    quat = np.stack([1 + nrm[:, 2], -nrm[:, 1], nrm[:, 0], np.zeros(n)], 1)
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    sigma = 1.2 * math.sqrt(4 * math.pi * MESH_RADIUS ** 2 / n)
+    c0 = 0.28209479177387814
+    return {
+        "xyz": pts,
+        "f_dc": ((cols - 0.5) / c0)[:, None, :],
+        "f_rest": np.zeros((n, 15, 3), np.float32),
+        "log_scale": np.log(np.tile([sigma, sigma, 0.01 * sigma],
+                                    (n, 1))).astype(np.float32),
+        "quat": quat.astype(np.float32),
+        "logit_opacity": np.full((n, 1), math.log(0.9 / 0.1), np.float32),
+        "obj_dc": np.zeros((n, 1, 0), np.float32),
+    }
+
+
+def write_mesh_scene(root, n_gauss, width, height, n_views, seed=0):
+    """A trained run for depth2mesh at the DTU protocol's shape: a COLMAP
+    scene of ``n_views`` cameras (``dtu_poses``; 8x6 stand-in images, since
+    depth2mesh reads geometry only and the config loads images lazily),
+    meta.json's box around the shell, and a config + PLY of ``n_gauss``
+    flat Gaussians on the shell. The config keeps the base recipe's
+    traditional depth: the intersection channel is the distance along the
+    ray, which the TSDF reads as z-depth, so it would move the surface off
+    the shell (PERF.md, open questions). Returns (config path, poses)."""
+    import yaml
+    from scipy.spatial.transform import Rotation
+
+    from vcr_gaus_tpu_torch.models.convert import state_from_numpy
+    from vcr_gaus_tpu_torch.models.ply_io import save_gaussian_ply
+    from vcr_gaus_tpu_torch.utils import colmap as CM
+
+    rng = np.random.default_rng(seed)
+    scene = os.path.join(root, "scene")
+    poses = dtu_poses(n_views)
+    qvecs = [np.roll(Rotation.from_matrix(R).as_quat(), 1) for R, _ in poses]
+    stand_in = np.zeros((6, 8, 3), np.uint8)
+    write_colmap_views(scene, width, height, n_views, lambda i: stand_in,
+                       poses=[(q, T) for q, (_, T) in zip(qvecs, poses)])
+    params = flat_shell_params(rng, n_gauss)
+    sub = rng.choice(n_gauss, min(n_gauss, 2000), replace=False)
+    CM.write_points3d_binary(params["xyz"][sub],
+                             np.full((len(sub), 3), 128.0),
+                             os.path.join(scene, "sparse", "0", "points3D.bin"))
+    with open(os.path.join(scene, "meta.json"), "w") as f:
+        json.dump({"trans": MESH_CENTER.tolist(), "scale": [MESH_BOX] * 3}, f)
+    logdir = os.path.join(root, "run")
+    save_gaussian_ply(state_from_numpy(params, np.ones(n_gauss, bool), "cpu"),
+                      os.path.join(logdir, "point_cloud", "iteration_30000",
+                                   "point_cloud.ply"))
+    cfg_path = os.path.join(logdir, "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({"_parent_": os.path.join(REPO, "configs",
+                                                 "config_base.yaml"),
+                        "model": {"source_path": scene,
+                                  "data_device": "lazy"}}, f)
+    return cfg_path, poses
+
+
+def write_dtu_instance(root, poses, width, height, scan=1, n_stl=2_000_000,
+                       seed=1):
+    """The DTU evaluation's inputs for the mesh scene, in mm at
+    MM_PER_UNIT: an instance dir (cameras.npz with world_mat_i and
+    scale_mat_i of ``poses``, full-frame masks) and a dataset dir (an STL
+    stand-in of ``n_stl`` points on the whole shell, an all-ones ObsMask
+    over its box, a ground plane behind the shell as the cameras see it,
+    cutting its far cap). Returns (dataset dir, instance dir)."""
+    from PIL import Image
+    from scipy.io import savemat
+
+    from vcr_gaus_tpu_torch.utils import graphics as G
+    from vcr_gaus_tpu_torch.utils.ply import write_points_ply
+
+    inst = os.path.join(root, "instance")
+    os.makedirs(os.path.join(inst, "mask"))
+    scale_mat = np.eye(4)
+    scale_mat[:3, :3] *= MM_PER_UNIT
+    scale_mat[:3, 3] = MM_OFFSET
+    K = np.array([[G.fov2focal(0.9, width), 0, width / 2],
+                  [0, G.fov2focal(0.7, height), height / 2], [0, 0, 1]])
+    cams = {}
+    full = Image.fromarray(np.full((height, width), 255, np.uint8))
+    for i, (R, T) in enumerate(poses):
+        P = np.eye(4)
+        P[:3] = K @ np.concatenate([R, T[:, None]], 1)
+        cams[f"world_mat_{i}"] = P @ np.linalg.inv(scale_mat)
+        cams[f"scale_mat_{i}"] = scale_mat
+        full.save(os.path.join(inst, "mask", f"{i:03d}.png"))
+    np.savez(os.path.join(inst, "cameras.npz"), **cams)
+
+    data = os.path.join(root, "dtu_eval")
+    os.makedirs(os.path.join(data, "ObsMask"))
+    stl, _ = sphere_shell(np.random.default_rng(seed), n_stl)
+    stl = stl.astype(np.float64) * MM_PER_UNIT + MM_OFFSET
+    write_points_ply(os.path.join(data, "Points", "stl",
+                                  f"stl{scan:03d}_total.ply"), stl)
+    bb = np.stack([stl.min(0) - 10, stl.max(0) + 10])
+    shape = np.ceil((bb[1] - bb[0]) / OBS_RES).astype(int) + 1
+    savemat(os.path.join(data, "ObsMask", f"ObsMask{scan}_10.mat"),
+            {"ObsMask": np.ones(shape, np.uint8), "BB": bb,
+             "Res": np.array([[OBS_RES]])})
+    # keep z < center + 0.2 radius: hom @ P > 0
+    z0 = (MESH_CENTER[2] + 0.2 * MESH_RADIUS) * MM_PER_UNIT + MM_OFFSET[2]
+    savemat(os.path.join(data, "ObsMask", f"Plane{scan}.mat"),
+            {"P": np.array([[0.0], [0.0], [-1.0], [z0]])})
+    return data, inst
+
+
+class StageTimer:
+    """Wraps module functions to record each call's seconds, the device
+    synchronized before and after, and the calls' arguments where asked.
+    Use as a context manager; the wrapped functions are restored on
+    exit."""
+
+    def __init__(self, device, targets, keep_args=()):
+        self.device, self.targets, self.keep_args = device, targets, keep_args
+        self.seconds = {name: [] for _, name in targets}
+        self.args = {name: [] for name in keep_args}
+
+    def _sync(self):
+        import torch
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                self._sync()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                self._sync()
+                self.seconds[_name].append(time.perf_counter() - t0)
+                if _name in self.args:
+                    self.args[_name].append((a, kw))
+                return out
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase_mesh(device, n_gauss=1_000_000, width=1600, height=1200,
+               n_views=DTU_VIEWS, voxel=MESH_VOXEL, n_stl=2_000_000,
+               n_nn_check=200_000, n_check_tiles=64, timing_iters=20) -> dict:
+    """Phase 7: mesh and score a DTU-shaped run through the entry points."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from vcr_gaus_tpu_torch import depth2mesh, eval_geometry
+    from vcr_gaus_tpu_torch.evaluation import dtu_cull
+    from vcr_gaus_tpu_torch.evaluation import geometry as GE
+    from vcr_gaus_tpu_torch.meshing import extract as X
+    from vcr_gaus_tpu_torch.meshing import marching as MC
+    from vcr_gaus_tpu_torch.meshing import tsdf as T
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        cfg_path, poses = write_mesh_scene(root, n_gauss, width, height,
+                                           n_views)
+        data_dir, inst_dir = write_dtu_instance(root, poses, width, height,
+                                                n_stl=n_stl)
+        setup_s = time.perf_counter() - t0
+
+        # the forward kernel's first call on the path, for its timing and
+        # the tile check
+        calls = []
+        wrapped = R.rasterize_forward
+
+        def spy(*args, **kw):
+            out = wrapped(*args, **kw)
+            if not calls:
+                calls.append((args, kw, out))
+            return out
+
+        timer = StageTimer(device, [
+            (depth2mesh, "prune_outliers"), (X, "_view_depth"),
+            (T, "integrate"), (MC, "marching_tets"),
+            (MC, "keep_largest_components"), (dtu_cull, "cull_mesh_dtu"),
+            (GE, "sample_points_on_mesh"), (GE, "radius_downsample"),
+            (GE, "nn_distances")], keep_args=("integrate", "nn_distances"))
+        R.rasterize_forward = spy
+        try:
+            with timer:
+                R.reset_launch_counts()
+                t0 = time.perf_counter()
+                mesh_path = depth2mesh.main([
+                    "--cfg_path", cfg_path, "--voxel_size", str(voxel),
+                    "--max_depth", str(MESH_MAX_DEPTH), "--prob_thr", "0.15",
+                    "--num_cluster", "1", "--device", str(device)])
+                torch.cuda.synchronize()
+                mesh_s = time.perf_counter() - t0
+                launches = dict(R.LAUNCHES)
+                t0 = time.perf_counter()
+                score = eval_geometry.main([
+                    "dtu", "--ply_path", mesh_path, "--dataset_dir", data_dir,
+                    "--scan", "1", "--instance_dir", inst_dir,
+                    "--device", str(device)])
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t0
+        finally:
+            R.rasterize_forward = wrapped
+        sec = timer.seconds
+
+        if launches.get("rasterize_fwd", 0) != n_views:
+            raise AssertionError(f"rasterize_fwd launched {launches} on the "
+                                 f"mesh path, expected once per view")
+        verts, faces = X.load_mesh_ply(mesh_path)
+        radii = np.linalg.norm(verts - MESH_CENTER, axis=1)
+        radius_err = float(np.median(radii)) - MESH_RADIUS
+        if len(faces) < 1000 or abs(radius_err) > 2 * voxel:
+            raise AssertionError(f"mesh of {len(verts)} verts, median radius "
+                                 f"off the shell by {radius_err}")
+        score_limit = 2 * voxel * MM_PER_UNIT
+        if not (math.isfinite(score["overall"])
+                and score["overall"] < score_limit):
+            raise AssertionError(f"chamfer {score} above {score_limit} mm")
+
+        # the card's nearest neighbours on a subsample of the data -> STL
+        # query, against scipy's cKDTree in float64
+        (query, target, *_), _ = timer.args["nn_distances"][0]
+        rng = np.random.default_rng(0)
+        q = query[rng.choice(len(query), min(n_nn_check, len(query)),
+                             replace=False)]
+        t = target[rng.choice(len(target), min(n_nn_check, len(target)),
+                              replace=False)]
+        t0 = time.perf_counter()
+        got = GE.nn_distances(q, t, device=device)
+        nn_check_s = time.perf_counter() - t0
+        want = cKDTree(t).query(q, k=1, workers=-1)[0]
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+        nn_rel_err = float(np.max(np.abs(got - want)
+                                  / np.maximum(want, 1e-300)))
+
+        # the forward kernel on the first view of the sweep
+        (feats, binn, cam, w, h, ch_sem, mode), _, (img, batches) = calls[0]
+
+        def kernel():
+            R.rasterize_forward(feats, binn, cam, w, h, ch_sem, mode)
+
+        kernel_ms = cuda_ms(kernel, iters=timing_iters)
+        err = fwd_tile_check(calls[0], n_check_tiles)
+        composited, rows = composited_census(binn, batches)
+        pairs, power_pass, live, _ = pair_census(
+            feats, binn, batches, B.tile_grid(w, h)[0])
+        _, flop_s, byte_s = fwd_bound(feats, binn, composited, rows, pairs,
+                                      power_pass, live, w, h, ch_sem, mode)
+        grid_dims = list(timer.args["integrate"][0][0][0].tsdf.shape)
+
+    emit(phase="mesh", gaussians=n_gauss, width=width, height=height,
+         views=n_views, voxel=voxel, grid_dims=grid_dims,
+         voxels=int(np.prod(grid_dims)), setup_s=setup_s,
+         depth2mesh_s=mesh_s, eval_s=eval_s, total_s=mesh_s + eval_s,
+         prune_s=sum(sec["prune_outliers"]),
+         render_ms_per_view=1e3 * statistics.median(sec["_view_depth"]),
+         kernel_ms=kernel_ms, bound_ms=1e3 * max(flop_s, byte_s),
+         bound_by="operations" if flop_s >= byte_s else "bytes",
+         pairs=pairs, live_pairs=live,
+         integrate_ms_per_view=1e3 * statistics.median(sec["integrate"]),
+         marching_s=sum(sec["marching_tets"]),
+         cleanup_s=sec["keep_largest_components"][0],
+         cull_s=sum(sec["cull_mesh_dtu"]),
+         cull_cleanup_s=sum(sec["keep_largest_components"][1:]),
+         sample_s=sum(sec["sample_points_on_mesh"]),
+         downsample_s=sum(sec["radius_downsample"]),
+         nn_s=sum(sec["nn_distances"]),
+         nn_queries=[len(a[0]) for a, _ in timer.args["nn_distances"]],
+         nn_targets=[len(a[1]) for a, _ in timer.args["nn_distances"]],
+         mesh_verts=len(verts), mesh_faces=len(faces),
+         median_radius_err=radius_err, chamfer=score,
+         chamfer_limit_mm=score_limit, nn_check=[len(q), len(t)],
+         nn_check_s=nn_check_s, nn_check_max_rel_err=nn_rel_err,
+         tile_check_max_abs_err=err, launches=launches)
+    return dict(launches=launches.get("rasterize_fwd", 0), max_abs_err=err)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1486,9 +1848,11 @@ def main() -> int:
     tr = phase_train(device)
     hl = phase_host_loop(device)
     mp = phase_microprobe(device)
+    ms = phase_mesh(device)
     # launches: each kernel's count on the main path of the slice that
     # brought it (the training run for K1 and K2, the host loop's run for
-    # K3, the microprobe's entry point for K4); the forward kernel's times
+    # K3, the microprobe's entry point for K4), and K1's on the mesh path
+    # (``launches_mesh``, one per fused view); the forward kernel's times
     # are those of the render path's view, the stats kernel's those of the
     # host loop's first densify view, the probe's those of `full` at the
     # protocol shape
@@ -1497,7 +1861,8 @@ def main() -> int:
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_fwd.cu",
         "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:532",
         "launches": tr["launches"]["rasterize_fwd"],
-        "max_abs_err": max(worst, sl["max_abs_err"]),
+        "launches_mesh": ms["launches"],
+        "max_abs_err": max(worst, sl["max_abs_err"], ms["max_abs_err"]),
         "ms": sl["kernel_ms"], "plain_ms": sl["plain_ms"],
         "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
         "library_ms": None}, {

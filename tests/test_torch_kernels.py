@@ -227,3 +227,79 @@ def test_kernel_microprobe_launch_count(cuda):
     M.microprobe_torch(*ins, **M.toggles_of("full"))
     M.microprobe(*ins, **M.VARIANTS["no_exp"])
     assert dict(R.LAUNCHES) == {"kernel_microprobe": 2}
+
+
+def sphere_depths(n_views=4, w=96, h=72, r=0.5):
+    """Analytic z-depth of a sphere of radius r at the origin from ring
+    cameras at distance 3: (depth (H,W), row-vector viewmatrix, intr)."""
+    import numpy as np
+
+    fx, fy = w / (2 * np.tan(0.4)), h / (2 * np.tan(0.325))
+    ys, xs = np.mgrid[0:h, 0:w] + 0.5
+    dirs = np.stack([(xs - w / 2) / fx, (ys - h / 2) / fy, np.ones_like(xs)],
+                    -1)
+    views = []
+    for i in range(n_views):
+        ang = 2 * np.pi * i / n_views
+        pos = np.array([3 * np.cos(ang), 0.5, 3 * np.sin(ang)])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd])
+        view = np.eye(4, dtype=np.float32)
+        view[:3, :3], view[:3, 3] = R, -R @ pos
+        d_world = dirs @ R                      # z-unit rays in the world
+        b = 2 * (d_world @ pos)
+        c = pos @ pos - r * r
+        a = np.sum(d_world * d_world, -1)
+        disc = b * b - 4 * a * c
+        t = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a),
+                     0)
+        views.append((t.astype(np.float32), view.T.copy(),
+                      np.array([fx, fy, w / 2, h / 2], np.float32)))
+    return views
+
+
+def test_tsdf_integrate_on_card_matches_cpu(cuda, monkeypatch):
+    import numpy as np
+
+    from vcr_gaus_tpu_torch.meshing import tsdf as T
+
+    monkeypatch.setattr(T, "SLAB_VOXELS", 20_000)      # several slabs
+    grids = {dev: T.create_grid(np.zeros(3), 0.7, 0.02, device=dev)
+             for dev in ("cpu", cuda)}
+    for depth, view, intr in sphere_depths():
+        for dev, grid in grids.items():
+            T.integrate(grid, torch.from_numpy(depth).to(dev),
+                        torch.from_numpy(view).to(dev),
+                        torch.from_numpy(intr).to(dev))
+    cpu, card = grids["cpu"], grids[cuda]
+    assert int((cpu.weight > 0).sum()) > 5000
+    differ = ((card.weight.cpu() != cpu.weight)
+              | ((card.tsdf.cpu() - cpu.tsdf).abs() > 1e-5))
+    assert int(differ.sum()) <= 1e-4 * differ.numel()
+
+
+def test_nn_and_downsample_on_card_match_scipy(cuda):
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from vcr_gaus_tpu_torch.evaluation import geometry as GE
+
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(40_000, 3))
+    target = 300 * d / np.linalg.norm(d, axis=1, keepdims=True) + 600
+    query = target[:20_000] + rng.normal(scale=2.0, size=(20_000, 3))
+    query[:200] += 80                               # beyond max_dist
+    want = cKDTree(target).query(query)[0]
+    np.testing.assert_allclose(GE.nn_distances(query, target, device=cuda),
+                               want, rtol=1e-12, atol=0)
+    capped = GE.nn_distances(query, target, max_dist=20.0, device=cuda)
+    near = want < 20.0
+    np.testing.assert_allclose(capped[near], want[near], rtol=1e-12, atol=0)
+    assert (capped[~near] >= 20.0).all()
+    # the greedy downsample's point set, bit for bit
+    pts = np.concatenate([target, target[:5000] + 0.1])
+    np.testing.assert_array_equal(
+        GE.radius_downsample(pts, 2.0, device=cuda),
+        GE.radius_downsample(pts, 2.0, device="cpu"))

@@ -1,10 +1,13 @@
-"""k-nearest-neighbour squared distances for the scale init
-(vcr_gaus_tpu/ops/knn.py): ``knn_sq_dists`` and ``mean_sq_dist_to_3nn``.
+"""Neighbour queries (vcr_gaus_tpu/ops/knn.py): k-nearest-neighbour squared
+distances for the scale init (``knn_sq_dists``, ``mean_sq_dist_to_3nn``)
+and the outlier tests of mesh extraction (``radius_neighbor_counts``,
+``remove_radius_outlier``, ``remove_statistical_outlier``).
 
 The algorithm is the JAX package's on both sides of ``EXACT_MAX_N``: blocked
 brute force below it; above it three passes, each sorting the points along
 a Morton curve (in three fixed rotated frames) and searching a window of
-+-``WINDOW`` sorted neighbours, merged and deduplicated by neighbour id.
++-``WINDOW`` sorted neighbours (``COUNT_WINDOW`` for the radius counts),
+merged and deduplicated by neighbour id, or the counts' maximum taken.
 
 Sums of three products are evaluated as chains of fused multiply-adds, in
 the order XLA evaluates them on the CPU (emulated through float64, whose
@@ -21,6 +24,7 @@ import torch
 EXACT_MAX_N = 8192          # below this, blocked brute force is cheap
 K = 3                       # neighbours of the scale init
 WINDOW = 32                 # +- sorted neighbours searched per Morton pass
+COUNT_WINDOW = 48           # the same for the radius counts
 BLOCK = 4096                # points per block of a Morton pass
 
 
@@ -94,10 +98,11 @@ def _knn_exact(points: torch.Tensor, k: int, block: int = 1024):
     return d2
 
 
-def _window_pass(points: torch.Tensor, k: int, window: int, block: int,
-                 rot: np.ndarray | None = None):
-    """One Morton pass, optionally in a rotated frame; returns ((N,k) sq
-    dists, (N,k) neighbour indices in the original numbering)."""
+def _morton_windows(points: torch.Tensor, window: int, block: int,
+                    rot: np.ndarray | None):
+    """One Morton pass, optionally in a rotated frame: the sort order, and
+    per block of sorted points (their window's sorted indices (B, 2W), its
+    validity, the squared distances)."""
     n = points.shape[0]
     dev = points.device
     if rot is not None:
@@ -107,32 +112,49 @@ def _window_pass(points: torch.Tensor, k: int, window: int, block: int,
     sorted_pts = points[order]
     offs = torch.cat([torch.arange(-window, 0, device=dev),
                       torch.arange(1, window + 1, device=dev)])
+
+    def blocks():
+        for s in range(0, n, block):
+            idx = torch.arange(s, min(s + block, n), device=dev)
+            nbr = idx[:, None] + offs[None, :]                   # (B, 2W)
+            valid = (nbr >= 0) & (nbr < n)
+            nbr = nbr.clamp(0, n - 1)
+            diff = sorted_pts[idx][:, None, :] - sorted_pts[nbr]
+            yield nbr, valid, _dot3(diff, diff)
+
+    return order, blocks()
+
+
+def _unsort(order: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Rows of ``values`` in sorted order back to the original numbering."""
+    out = torch.empty_like(values)
+    out[order] = values
+    return out
+
+
+def _window_pass(points: torch.Tensor, k: int, window: int, block: int,
+                 rot: np.ndarray | None = None):
+    """One Morton pass; returns ((N,k) sq dists, (N,k) neighbour indices in
+    the original numbering)."""
+    order, blocks = _morton_windows(points, window, block, rot)
     d2_out, nbr_out = [], []
-    for s in range(0, n, block):
-        idx = torch.arange(s, min(s + block, n), device=dev)
-        nbr = idx[:, None] + offs[None, :]                   # (B, 2W)
-        valid = (nbr >= 0) & (nbr < n)
-        nbr = nbr.clamp(0, n - 1)
-        diff = sorted_pts[idx][:, None, :] - sorted_pts[nbr]
-        d2 = torch.where(valid, _dot3(diff, diff), float("inf"))
+    for nbr, valid, d2 in blocks:
+        d2 = torch.where(valid, d2, float("inf"))
         top = torch.topk(d2, k, dim=1, largest=False)
         d2_out.append(top.values)
         nbr_out.append(torch.gather(order[nbr], 1, top.indices))
-    d2_sorted = torch.cat(d2_out)
-    nbr_sorted = torch.cat(nbr_out)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n, device=dev)
-    return d2_sorted[inv], nbr_sorted[inv]
+    return (_unsort(order, torch.cat(d2_out)),
+            _unsort(order, torch.cat(nbr_out)))
 
 
-def knn_sq_dists(points: torch.Tensor) -> torch.Tensor:
-    """Squared distances to the K nearest neighbours, (N, K): exact for
+def knn_sq_dists(points: torch.Tensor, k: int = K) -> torch.Tensor:
+    """Squared distances to the k nearest neighbours, (N, k): exact for
     N <= EXACT_MAX_N, else the three Morton-window passes merged by
     neighbour id."""
     n = points.shape[0]
     if n <= EXACT_MAX_N:
-        return _knn_exact(points, K)
-    passes = [_window_pass(points, K, WINDOW, BLOCK, r) for r in _ROTS]
+        return _knn_exact(points, k)
+    passes = [_window_pass(points, k, WINDOW, BLOCK, r) for r in _ROTS]
     d2 = torch.cat([d for d, _ in passes], dim=1)            # (N, 3K)
     nbr = torch.cat([i for _, i in passes], dim=1)
     # the same neighbour is found by several passes: keep its first
@@ -146,7 +168,7 @@ def knn_sq_dists(points: torch.Tensor) -> torch.Tensor:
     dup = torch.any((nbs[:, None, :] == nbs[:, :, None]) & earlier[None],
                     dim=1)
     d2s = torch.where(dup, float("inf"), d2s)
-    return torch.topk(d2s, K, dim=1, largest=False).values
+    return torch.topk(d2s, k, dim=1, largest=False).values
 
 
 def mean_sq_dist_to_3nn(points: torch.Tensor) -> torch.Tensor:
@@ -154,3 +176,38 @@ def mean_sq_dist_to_3nn(points: torch.Tensor) -> torch.Tensor:
     d2 = knn_sq_dists(points)
     d2 = torch.where(torch.isfinite(d2), d2, 0.0)
     return d2.mean(dim=-1)
+
+
+def radius_neighbor_counts(points: torch.Tensor, radius: float
+                           ) -> torch.Tensor:
+    """Neighbours within ``radius``, (N,) int64: exact for N <= EXACT_MAX_N
+    (over the 64 nearest), else the maximum over the three Morton-window
+    passes, a lower bound on the true count."""
+    n = points.shape[0]
+    r2 = torch.tensor(np.float32(radius) * np.float32(radius),
+                      device=points.device)
+    if n <= EXACT_MAX_N:
+        return (_knn_exact(points, min(n - 1, 64)) <= r2).sum(dim=-1)
+    counts = []
+    for rot in _ROTS:
+        order, blocks = _morton_windows(points, COUNT_WINDOW, BLOCK, rot)
+        cnt = torch.cat([((d2 <= r2) & valid).sum(dim=-1)
+                         for _, valid, d2 in blocks])
+        counts.append(_unsort(order, cnt))
+    return torch.maximum(torch.maximum(counts[0], counts[1]), counts[2])
+
+
+def remove_radius_outlier(points: torch.Tensor, nb_points: int = 5,
+                          radius: float = 0.01) -> torch.Tensor:
+    """Keep-mask of the points with >= nb_points neighbours within
+    radius."""
+    return radius_neighbor_counts(points, radius) >= nb_points
+
+
+def remove_statistical_outlier(points: torch.Tensor, nb_neighbors: int = 20,
+                               std_ratio: float = 2.0) -> torch.Tensor:
+    """Keep-mask of the points whose mean distance to their nb_neighbors
+    nearest is within mean + std_ratio * std of the population."""
+    d2 = knn_sq_dists(points, nb_neighbors)
+    d = torch.sqrt(torch.clamp_min(d2, 0.0)).mean(dim=-1)
+    return d <= d.mean() + std_ratio * d.std(correction=0)

@@ -72,6 +72,24 @@ def depth_to_points_cam(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, depth], dim=-1)
 
 
+def transform_points(pts: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """``[pts, 1] @ M`` for a row-vector 4x4 ``M``, (..., 4), as elementwise
+    products summed pairwise, (p0 M0 + p1 M1) + (p2 M2 + M3): the order of
+    XLA's CPU matmul, and no TF32 on the card."""
+    return ((pts[..., 0:1] * M[0] + pts[..., 1:2] * M[1])
+            + (pts[..., 2:3] * M[2] + M[3]))
+
+
+def depth_to_points_world(depth: torch.Tensor, K: torch.Tensor,
+                          w2c_rowmajor: torch.Tensor):
+    """(camera-space points, world points), each (H,W,3), of a z-depth map;
+    ``w2c_rowmajor`` is the row-vector world->camera transform as cameras
+    store it."""
+    cam = depth_to_points_cam(depth, K)
+    c2w = torch.linalg.inv(w2c_rowmajor.T)
+    return cam, transform_points(cam, c2w.T)[..., :3]
+
+
 def _grad_axis(a: torch.Tensor, dim: int) -> torch.Tensor:
     """Central differences inside, one-sided at the borders."""
     n = a.shape[dim]
