@@ -75,6 +75,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
              200k x 200k points equal to scipy's cKDTree at rtol 1e-12, the
              forward kernel on the sweep's first view against its plain
              version on 64 tiles, and each stage's time;
+  8. train_tnt  the Tanks and Temples recipe at its width: a 1M-point
+             scene of 8 1600x900 views with f16 normal, f32 depth and RGB
+             mask priors (the label in blue), configs/tnt/base.yaml with its
+             schedule compressed (densify after 20, 30 and 40, each with
+             200 random box cameras: 198 views of 512^2 through the stats
+             kernel; resets at 20 and 40; a checkpoint at 20; test and save
+             at 40 over 2 views; capacity 2^21) through the CLI, then
+             resumed from the checkpoint; the launches against the
+             schedule's, the priors as written, finite losses, non-empty box
+             masks, the side networks changed, model.pkl plain numpy, the
+             resume's networks equal to the checkpoint's, mIoU in [0, 1];
+             then on the trained state the step's time (S = 2, the
+             appearance network), a profile, one step with mono_depth,
+             entropy and curv on (loss and gradients finite), K1 on 64
+             tiles and K2 whole of one step's view against their plain
+             versions with their times and bounds, the appearance network's
+             forward and backward, the box sweep per view, K3 on a box view
+             against its plain version with its bound, the mIoU sweep and a
+             densify's host time;
 then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of vcr_gaus_tpu.
 """
@@ -615,6 +634,22 @@ def fwd_bound(feats, binn, composited, rows, pairs, power_pass, live,
     return ops, ops / PEAK_FP32, nbytes / PEAK_BYTES
 
 
+def bwd_bound(feats, binn, composited, rows, pairs, power_pass, live,
+              width, height, ch_sem, mode) -> tuple[int, float, float]:
+    """The backward kernel's least time on one view, as ``fwd_bound``: the
+    operations of its pairs at what their outcome needs; the bytes, the
+    gids and feature rows read once, the image and its gradient read once,
+    the (N, 16+S) gradient written once."""
+    ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
+           + (OPS_BWD_LIVE + OPS_BWD_LIVE_SEM * ch_sem
+              + OPS_BWD_LIVE_INTERSECT * (mode == "intersection")) * live)
+    nbytes = (4 * composited + 4 * feats.shape[1] * rows
+              + 8 * binn.tile_counts.numel()
+              + 2 * height * width * 4 * (9 + ch_sem)
+              + 4 * feats.shape[0] * (feats.shape[1] + 2))
+    return ops, ops / PEAK_FP32, nbytes / PEAK_BYTES
+
+
 def pair_census(feats, binn, batches, n_tx, width=None,
                 height=None) -> tuple[int, int, int, dict]:
     """Counts of the (pixel, entry) pairs the kernel evaluates on one view:
@@ -854,12 +889,14 @@ def phase_slice(device, n_gauss=1_000_000, width=1600, height=1200,
                 max_abs_err=err)
 
 
-def write_train_scene(root, n_gauss, width, height, n_views, seed=0):
+def write_train_scene(root, n_gauss, width, height, n_views, seed=0,
+                      normal_folder="normal_npz_indoor"):
     """A COLMAP scene for training: ``n_views`` ring views of a smooth gray
-    pattern, a unit-normal prior per view as float16 .npz in the DTU
-    recipe's ``normal_npz_indoor`` folder, ``n_gauss`` points on bench.py's
-    sphere shell as the init cloud (points3D.ply) and meta.json holding the
-    box bench.py's cloud implies. Returns the scene directory."""
+    pattern, a unit-normal prior per view as float16 .npz in
+    ``normal_folder`` (default: the DTU recipe's), ``n_gauss`` points on
+    bench.py's sphere shell as the init cloud (points3D.ply) and meta.json
+    holding the box bench.py's cloud implies. Returns the scene
+    directory."""
     from vcr_gaus_tpu_torch.data.scene import bound_by_points
     from vcr_gaus_tpu_torch.utils.ply import write_points_ply
 
@@ -870,7 +907,7 @@ def write_train_scene(root, n_gauss, width, height, n_views, seed=0):
                         for c in range(3)], -1)
     gt = (255 * pattern).astype(np.uint8)
     write_colmap_views(scene, width, height, n_views, lambda i: gt)
-    nrm_dir = os.path.join(scene, "normal_npz_indoor")
+    nrm_dir = os.path.join(scene, normal_folder)
     os.makedirs(nrm_dir)
     for i in range(n_views):
         nrm = rng.normal(size=(3, height, width)).astype(np.float32)
@@ -1054,16 +1091,8 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         composited, rows = composited_census(binn, batches)
         pairs, power_pass, live, warp_steps = pair_census(feats, binn,
                                                           batches, n_tx)
-        ops = (OPS_PAIR * pairs + OPS_POWER_PASS * power_pass
-               + (OPS_BWD_LIVE + OPS_BWD_LIVE_SEM * ch_sem
-                  + OPS_BWD_LIVE_INTERSECT * (mode == "intersection")) * live)
-        flop_s = ops / PEAK_FP32
-        # gids and feature rows read once, the image and its gradient read
-        # once, the (N, 16+S) gradient written once
-        nbytes = (4 * composited + 4 * feats.shape[1] * rows
-                  + 8 * binn.tile_counts.numel() + 2 * h * w * 4 * (9 + ch_sem)
-                  + 4 * feats.shape[0] * (feats.shape[1] + 2))
-        byte_s = nbytes / PEAK_BYTES
+        ops, flop_s, byte_s = bwd_bound(feats, binn, composited, rows, pairs,
+                                        power_pass, live, w, h, ch_sem, mode)
         bound_ms = 1e3 * max(flop_s, byte_s)
         # the forward kernel's bound on the same view
         fwd_ops, fwd_flop_s, fwd_byte_s = fwd_bound(
@@ -1099,24 +1128,44 @@ def schedule_launches(trainer, first: int, last: int,
                       n_full: int) -> dict[str, int]:
     """The stats, forward and backward launches the schedule implies for
     iterations first..last of ``trainer``'s recipe: one forward and one
-    backward per step; per densify the box mask's sampled views, per prune
-    and for the final importance dump one stats launch per view of the
-    ``n_full`` train and test views; per test sweep one forward per train
-    view and one for the panel."""
-    sc = trainer.cfg.optim.densify_large.sample_cams
-    n_train = len(trainer.scene.train_cameras)
+    backward per step; per densify the box mask's views (``box_views``),
+    per prune and for the final importance dump one stats launch per view
+    of the ``n_full`` train and test views; per test sweep one forward per
+    train view (at most ``tpu.eval_max_cams``) and one for the panel."""
+    n_train = eval_views(trainer)
     want = {"rasterize_fwd": 0, "rasterize_bwd": 0, "rasterize_stats": 0}
     for j in range(first, last + 1):
         want["rasterize_fwd"] += 1
         want["rasterize_bwd"] += 1
         for act in trainer.host_actions(j):
             if act == "densify":
-                want["rasterize_stats"] += int(sc.num)
+                want["rasterize_stats"] += box_views(trainer)
             elif act in ("prune", "dump importance"):
                 want["rasterize_stats"] += n_full
             elif act == "test":
                 want["rasterize_fwd"] += n_train + 1
     return want
+
+
+def eval_views(trainer) -> int:
+    """The train views a test sweep renders (``tpu.eval_max_cams``, 0 =
+    all)."""
+    n = len(trainer.scene.train_cameras)
+    cap = int(trainer.cfg.tpu.eval_max_cams or 0)
+    return min(n, cap) if cap else n
+
+
+def box_views(trainer) -> int:
+    """The views of one densify's box mask: ``sample_cams.num`` training
+    views, or the cameras ``sample_box_cameras`` places on the box for
+    it (random mode)."""
+    from vcr_gaus_tpu_torch.data import box_cameras as BC
+    sc = trainer.cfg.optim.densify_large.sample_cams
+    if not sc.random:
+        return int(sc.num)
+    return len(BC._face_positions(int(sc.num), 1, 1.0, bool(sc.up),
+                                  bool(sc.around), "random",
+                                  np.random.default_rng(0)))
 
 
 def host_loop_args(scene, device, iters, capacity) -> list[str]:
@@ -1199,7 +1248,7 @@ def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
                   + len(trainer.scene.test_cameras))
         want = schedule_launches(trainer, 1, iters, n_full)
         # the CLI's final evaluation renders every train view
-        want["rasterize_fwd"] += len(trainer.scene.train_cameras)
+        want["rasterize_fwd"] += eval_views(trainer)
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         hist = trainer.history
@@ -1252,7 +1301,7 @@ def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
         resume_s = time.perf_counter() - t0
         r_launches = dict(R.LAUNCHES)
         r_want = schedule_launches(resumed, 21, 20 + resume_iters, n_full)
-        r_want["rasterize_fwd"] += len(resumed.scene.train_cameras)
+        r_want["rasterize_fwd"] += eval_views(resumed)
         got_iters = [h["iter"] for h in resumed.history]
         if (got_iters != list(range(21, 21 + resume_iters))
                 or r_launches != r_want):
@@ -1813,6 +1862,424 @@ def phase_mesh(device, n_gauss=1_000_000, width=1600, height=1200,
     return dict(launches=launches.get("rasterize_fwd", 0), max_abs_err=err)
 
 
+# the Tanks and Temples cell: 1600x900 views (a TNT image at resolution -1)
+TNT_WIDTH, TNT_HEIGHT = 1600, 900
+SHELL_CENTER, SHELL_RADIUS = np.array([0.0, 0.0, 4.0]), 1.5
+# the losses of the port no TNT recipe sets, on one more step:
+# ScanNet++'s curv (with its mask_depth_thr 0: the depth cut off) and 0.01
+# of mono_depth and entropy
+EXTRA_LOSSES = {"mono_depth": 0.01, "entropy": 0.01, "curv": 0.05}
+
+
+def shell_views(width, height, n_views):
+    """Per ring view of ``write_colmap_views`` (identity rotation, centre
+    on the 0.3 ring, fovx 0.9, fovy 0.7): the sphere shell's silhouette
+    (H, W) bool through the pixel centres, and the z-depth of its front
+    surface there (0 elsewhere), float32."""
+    from vcr_gaus_tpu_torch.utils import graphics as G
+
+    fx, fy = G.fov2focal(0.9, width), G.fov2focal(0.7, height)
+    v, u = np.mgrid[0:height, 0:width] + 0.5
+    d = np.stack([(u - width / 2) / fx, (v - height / 2) / fy,
+                  np.ones_like(u)], -1)
+    a = np.sum(d * d, -1)
+    out = []
+    for i in range(n_views):
+        ang = 2 * np.pi * i / n_views
+        c = SHELL_CENTER + np.array([0.3 * np.cos(ang), 0.3 * np.sin(ang),
+                                     0.0])
+        b = d @ c
+        disc = b * b - a * (c @ c - SHELL_RADIUS ** 2)
+        hit = disc >= 0
+        z = (b - np.sqrt(np.maximum(disc, 0.0))) / a
+        out.append((hit, np.where(hit, z, 0.0).astype(np.float32)))
+    return out
+
+
+def write_tnt_scene(root, n_gauss, width, height, n_views, seed=0):
+    """``write_train_scene``'s layout with the TNT recipe's priors: f16
+    normals under ``normals/``, f32 depth (the shell's z-depth) under
+    ``depths/`` and mask PNGs written as RGB under ``masks/``, the label
+    (1 on the shell's silhouette, 0 elsewhere) in the blue channel and
+    other values in red and green, as OpenCV reads channel 0 of BGR.
+    Returns (scene directory, the labels per view)."""
+    from PIL import Image
+
+    scene = write_train_scene(root, n_gauss, width, height, n_views, seed,
+                              normal_folder="normals")
+    os.makedirs(os.path.join(scene, "masks"))
+    os.makedirs(os.path.join(scene, "depths"))
+    labels = []
+    for i, (hit, z) in enumerate(shell_views(width, height, n_views)):
+        rgb = np.empty((height, width, 3), np.uint8)
+        rgb[..., 0], rgb[..., 1], rgb[..., 2] = 7, 3, hit
+        Image.fromarray(rgb, "RGB").save(os.path.join(
+            scene, "masks", f"view_{i:03d}.png"))
+        np.savez(os.path.join(scene, "depths", f"view_{i:03d}.npz"), z)
+        labels.append(hit.astype(np.int32))
+    return scene, labels
+
+
+def tnt_args(scene, device, iters, capacity, eval_cams) -> list[str]:
+    """The train CLI's arguments of phase train_tnt's run: the TNT recipe
+    (200 random box cameras a densify, the appearance network, the
+    semantic head) with its schedule compressed: densify after 20, 30 and
+    40, opacity resets at 20 and 40, a checkpoint at 20, test and save at
+    the last iteration, the test sweeps capped at ``eval_cams`` views."""
+    return ["--config", os.path.join(REPO, "configs", "tnt", "base.yaml"),
+            "--device", str(device), f"--model.source_path={scene}",
+            f"--optim.iterations={iters}", "--optim.densify_from_iter=10",
+            "--optim.densification_interval=10",
+            "--optim.opacity_reset_interval=20",
+            f"--train.test_iterations=[{iters}]",
+            f"--train.save_iterations=[{iters}]",
+            "--train.checkpoint_iterations=[20]",
+            f"--tpu.capacity={capacity}", f"--tpu.eval_max_cams={eval_cams}"]
+
+
+def numpy_tree(x) -> bool:
+    """Whether ``x`` holds only dicts, tuples and numpy arrays."""
+    if isinstance(x, dict):
+        return all(isinstance(k, str) and numpy_tree(v) for k, v in x.items())
+    if isinstance(x, tuple):
+        return all(numpy_tree(v) for v in x)
+    return isinstance(x, np.ndarray)
+
+
+def trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(trees_equal, a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def phase_train_tnt(device, n_gauss=1_000_000, width=TNT_WIDTH,
+                    height=TNT_HEIGHT, n_views=8, iters=40, resume_iters=4,
+                    capacity=1 << 21, eval_cams=2, timed_steps=10,
+                    profiled_steps=3, timing_iters=20,
+                    n_check_tiles=64) -> dict:
+    """Phase 8: the TNT recipe at full width through the train CLI (random
+    box cameras, the appearance network, the semantic head, the priors),
+    the resume, the kernels on this path against their plain versions, one
+    step with the remaining losses, and the path's times."""
+    import dataclasses
+    import pickle
+
+    import torch
+
+    from vcr_gaus_tpu_torch.data import scene as SC
+    from vcr_gaus_tpu_torch.models import appearance as APP
+    from vcr_gaus_tpu_torch.models import ply_io
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.train import side_nets as SN
+    from vcr_gaus_tpu_torch.train import trainer as T
+    from vcr_gaus_tpu_torch.train.__main__ import main as train_main
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        scene, labels = write_tnt_scene(root, n_gauss, width, height,
+                                        n_views)
+        setup_s = time.perf_counter() - t0
+        logdir = os.path.join(root, "run")
+        args = tnt_args(scene, device, iters, capacity, eval_cams)
+
+        # each densify's box mask (visible, inside, large) and the side
+        # networks right after a restore
+        masks, restored = [], []
+        box_mask, restore = (T.Trainer._box_densify_mask,
+                             T.Trainer.restore_checkpoint)
+
+        def mask_spy(self):
+            m = box_mask(self)
+            masks.append(int(m.sum()))
+            return m
+
+        def restore_spy(self, path):
+            restore(self, path)
+            restored.append(self.nets.state_dict())
+
+        T.Trainer._box_densify_mask = mask_spy
+        T.Trainer.restore_checkpoint = restore_spy
+        try:
+            R.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer = train_main(args + [f"--logdir={logdir}"])
+            train_s = time.perf_counter() - t0
+            launches = dict(R.LAUNCHES)
+
+            # resume from the checkpoint at 20 through the CLI
+            R.reset_launch_counts()
+            t0 = time.perf_counter()
+            resumed = train_main(args + [
+                f"--logdir={os.path.join(root, 'resume')}",
+                f"--optim.iterations={20 + resume_iters}",
+                f"--train.test_iterations=[{20 + resume_iters}]",
+                f"--train.save_iterations=[{20 + resume_iters}]",
+                f"--train.start_checkpoint={logdir}/chkpnt20.npz"])
+            resume_s = time.perf_counter() - t0
+            r_launches = dict(R.LAUNCHES)
+        finally:
+            T.Trainer._box_densify_mask = box_mask
+            T.Trainer.restore_checkpoint = restore
+        cfg = trainer.cfg
+        n_box = box_views(trainer)
+        n_full = len(trainer.scene.train_cameras)
+        want = schedule_launches(trainer, 1, iters, n_full)
+        want["rasterize_fwd"] += eval_views(trainer)
+        if n_box != 198 or launches != want:
+            raise AssertionError(f"launches {launches}, expected {want} "
+                                 f"({n_box} box views a densify)")
+        if trainer.ch_sem != 2 or trainer.nets.app is None:
+            raise AssertionError("the TNT recipe runs without its networks")
+        for cam, lab in zip(trainer.scene.train_cameras, labels):
+            if not np.array_equal(cam.mask, lab):
+                raise AssertionError(f"mask of {cam.image_name} not read "
+                                     "as written")
+        hist = trainer.history
+        if len(hist) != iters or not all(
+                math.isfinite(v) for h in hist for v in h.values()):
+            raise AssertionError(f"training history: {hist}")
+        if min(h["semantic"] for h in hist) < 0:
+            raise AssertionError("negative semantic loss")
+        log = trainer.host_log
+        acts = [(r["iter"], r["action"]) for r in log]
+        expected = [(20, "densify"), (20, "reset opacity"), (30, "densify"),
+                    (40, "densify"), (40, "reset opacity")]
+        if acts != expected:
+            raise AssertionError(f"host actions {acts}, expected {expected}")
+        if len(masks) < 3 or min(masks[:3]) == 0 or any(
+                r["n_after"] == r["n_before"] for r in log
+                if r["action"] == "densify"):
+            raise AssertionError(f"box masks {masks}, host log {log}")
+        init = SN.SideNets(cfg, n_full, trainer.ch_sem, trainer.num_cls,
+                           torch.Generator().manual_seed(int(cfg.seed)),
+                           device).state_dict()
+        final = trainer.nets.state_dict()
+        for name in ("app_embeddings", "cls_params", "app_params"):
+            if trees_equal(init[name], final[name]):
+                raise AssertionError(f"{name} did not change over the run")
+        out = os.path.join(logdir, "point_cloud", f"iteration_{iters}")
+        with open(os.path.join(out, "model.pkl"), "rb") as f:
+            side = pickle.load(f)
+        if (sorted(side) != ["appearance", "classifier"]
+                or not numpy_tree(side)):
+            raise AssertionError("model.pkl is not plain dicts of numpy")
+        _, _, extra = ply_io.load_checkpoint(
+            os.path.join(logdir, "chkpnt20.npz"), device="cpu")
+        got_iters = [h["iter"] for h in resumed.history]
+        r_want = schedule_launches(resumed, 21, 20 + resume_iters, n_full)
+        r_want["rasterize_fwd"] += eval_views(resumed)
+        if (len(restored) != 1 or not trees_equal(restored[0], extra["net"])
+                or got_iters != list(range(21, 21 + resume_iters))
+                or r_launches != r_want):
+            raise AssertionError(f"resume: iterations {got_iters}, launches "
+                                 f"{r_launches}, expected {r_want}")
+        res = trainer.test_history[-1]["train"]
+        if not 0.0 <= res["miou"] <= 1.0:
+            raise AssertionError(f"mIoU {res}")
+        emit(phase="train_tnt", gaussians_init=n_gauss, width=width,
+             height=height, views=n_views, iterations=iters,
+             box_views_per_densify=n_box, setup_s=setup_s,
+             train_main_s=train_s, resume_s=resume_s, launches=launches,
+             resume_launches=r_launches, box_mask_sizes=masks[:3],
+             host_log=log, capacity=trainer.state.capacity,
+             gaussians=trainer.state.num_active, test=trainer.test_history,
+             losses_first_last=[hist[0], hist[-1]])
+        del resumed
+
+        # the timed step: the trained state, the recipe's weights with
+        # every gate open, SH degree 3, the appearance network and S = 2;
+        # each step uploads its view's image and priors
+        state, nets = trainer.state, trainer.nets
+        rcfg = trainer.rcfg
+        step = T.make_train_step(cfg, rcfg, trainer.weights, trainer.extent,
+                                 trainer.trans, trainer.scale,
+                                 trainer.num_cls)
+        gates = T.Gates(*(True,) * len(T.Gates._fields))
+        views = trainer.scene.train_cameras
+        bg = torch.zeros(3, device=device)
+        lr = trainer._lr_xyz(iters)
+
+        def one(i, st, w_step=step):
+            return w_step(st, views[i % n_views].arrays(device), bg, lr, 3,
+                          gates, nets)
+
+        for i in range(2):
+            state, _, _ = one(i, state)
+        step_ms, step_losses = [], []
+        for i in range(timed_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses, aux = one(2 + i, state)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            step_losses.append({k: float(v) for k, v in losses.items()})
+        if not all(math.isfinite(v) for ls in step_losses for v in ls.values()):
+            raise AssertionError(f"non-finite losses: {step_losses}")
+        box = [state]
+
+        def profiled(i):
+            box[0], _, _ = one(i, box[0])
+
+        profile = profile_render(profiled, list(range(profiled_steps)),
+                                 spans=("render.", "train."))
+        state = box[0]
+        profile["backward_kernel_device_ms"] = sum(
+            ms for k, ms in profile["port_kernel_ms"].items()
+            if "rasterize_bwd" in k)
+
+        # the remaining losses on one more step, on view 0 with its depth
+        # prior (the recipe loads none), the depth cut off as ScanNet++'s
+        # recipe has it (at 0.8 of this scene's small camera extent it
+        # masks every pixel of the shell): loss and every gradient finite
+        view0 = dataclasses.replace(views[0], depth=SC._load_aux(
+            os.path.join(scene, "depths"), "view_000.png", "depth",
+            (width, height)))
+        grads = []
+        autograd_grad = torch.autograd.grad
+
+        def grad_spy(*a, **kw):
+            g = autograd_grad(*a, **kw)
+            grads.extend(x for x in g if x is not None)
+            return g
+
+        extra_step = T.make_train_step(
+            cfg, rcfg._replace(mask_depth_thr=0.0),
+            {**trainer.weights, **EXTRA_LOSSES}, trainer.extent,
+            trainer.trans, trainer.scale, trainer.num_cls)
+        torch.autograd.grad = grad_spy
+        try:
+            _, extra_losses, _ = extra_step(state, view0.arrays(device), bg,
+                                            lr, 3, gates, nets)
+        finally:
+            torch.autograd.grad = autograd_grad
+        extra_losses = {k: float(v) for k, v in extra_losses.items()}
+        if (not set(EXTRA_LOSSES) <= set(extra_losses)
+                or not min(extra_losses[k] for k in EXTRA_LOSSES) > 0
+                or not all(map(math.isfinite, extra_losses.values()))
+                or not grads or not all(bool(torch.isfinite(g).all())
+                                        for g in grads)):
+            raise AssertionError(f"extra losses {extra_losses}")
+
+        # K1 and K2 <2, true> on one step's inputs
+        captured = {}
+        wrapped = R.rasterize_forward, R.rasterize_backward
+
+        def spy(name, fn):
+            def call(*a):
+                res = fn(*a)
+                captured[name] = (a, {}, res)
+                return res
+            return call
+
+        R.rasterize_forward = spy("fwd", wrapped[0])
+        R.rasterize_backward = spy("bwd", wrapped[1])
+        try:
+            state, _, _ = one(3, state)
+        finally:
+            R.rasterize_forward, R.rasterize_backward = wrapped
+        fwd_call = tuple(tuple(x.detach() if isinstance(x, torch.Tensor)
+                               else x for x in part) if isinstance(part, tuple)
+                         else part for part in captured["fwd"])
+        args_b = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                       for a in captured["bwd"][0])
+        feats, binn, cam, img, g_img, batches, w, h, ch_sem, mode = args_b
+        if ch_sem != 2 or (w, h) != (width, height):
+            raise AssertionError(f"step view {w}x{h}, S = {ch_sem}")
+        fwd_err = fwd_tile_check(fwd_call, n_check_tiles)
+        groups = assert_grads_close(
+            R.rasterize_backward(*args_b),
+            R.composite_tiles_backward_torch(
+                feats, binn.sorted_gid, binn.tile_starts, binn.tile_counts,
+                batches, cam, img, g_img, ch_sem, mode), ch_sem, BWD["rtol"])
+        fwd_ms = cuda_ms(lambda: R.rasterize_forward(*fwd_call[0]),
+                         iters=timing_iters)
+        bwd_ms = cuda_ms(lambda: R.rasterize_backward(*args_b),
+                         iters=timing_iters)
+        n_tx, _ = B.tile_grid(w, h)
+        composited, rows = composited_census(binn, batches)
+        pairs, power_pass, live, _ = pair_census(feats, binn, batches, n_tx)
+        f_ops, f_flop, f_byte = fwd_bound(feats, binn, composited, rows,
+                                          pairs, power_pass, live, w, h,
+                                          ch_sem, mode)
+        b_ops, b_flop, b_byte = bwd_bound(feats, binn, composited, rows,
+                                          pairs, power_pass, live, w, h,
+                                          ch_sem, mode)
+
+        # the appearance network on the step's view: forward, and forward
+        # with the backward to the embeddings and weights
+        img3 = img[:3].contiguous()
+        idx = torch.tensor(0, device=device)
+        leaves = nets.app_opt.params
+
+        def app_fwd():
+            with torch.no_grad():
+                APP.appearance_transform(nets.app, nets.emb, img3, idx)
+
+        def app_fwd_bwd():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                out_t, _ = APP.appearance_transform(nets.app, nets.emb,
+                                                    img3, idx)
+                torch.autograd.grad(out_t.sum(), leaves)
+
+        app_fwd_ms = cuda_ms(app_fwd, iters=timing_iters)
+        app_fwd_bwd_ms = cuda_ms(app_fwd_bwd, iters=timing_iters)
+
+        # K3 on the first view of a densify's box sweep
+        trainer.state = state
+        sc = cfg.optim.densify_large.sample_cams
+        size = int(getattr(cfg.tpu, "visi_resolution", 512))
+        box_cam = T.sample_box_cameras(
+            int(sc.num), trainer.trans, trainer.scale, up=bool(sc.up),
+            around=bool(sc.around), sample_mode="random", size=size,
+            seed=trainer.iteration, device=device)[0]
+        k3 = stats_kernel_numbers(*stats_inputs(
+            state, box_cam, rcfg._replace(width=size, height=size, ch_sem=0)),
+            timing_iters)
+
+        # the mIoU sweep over every train view; one densify's host time and
+        # its box sweep's (the stats of 198 views)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep = trainer.evaluate()
+        torch.cuda.synchronize()
+        miou_ms = 1e3 * (time.perf_counter() - t0) / n_views
+        for _ in range(2):
+            trainer.train_step()
+        with StageTimer(device, [(trainer, "get_visi_mask_acc")]) as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.densify(20)
+            torch.cuda.synchronize()
+            densify_ms = 1e3 * (time.perf_counter() - t0)
+        sweep_ms = 1e3 * timer.seconds["get_visi_mask_acc"][0]
+
+    emit(phase="train_tnt_step", gaussians=state.num_active, width=width,
+         height=height, ch_sem=ch_sem, weights=trainer.weights,
+         step_ms=statistics.median(step_ms), step_ms_all=step_ms,
+         step_losses=step_losses, extra_step_losses=extra_losses,
+         entries=aux["num_entries"], composited_entries=composited,
+         pairs=pairs, pairs_past_power_test=power_pass, live_pairs=live,
+         fwd_kernel_ms=fwd_ms, fwd_bound_ops=f_ops,
+         fwd_bound_ms=1e3 * max(f_flop, f_byte),
+         bwd_kernel_ms=bwd_ms, bwd_bound_ops=b_ops,
+         bwd_bound_ms=1e3 * max(b_flop, b_byte),
+         fwd_tile_check_max_abs_err=fwd_err,
+         bwd_err_and_max_grad=groups,
+         appearance_fwd_ms=app_fwd_ms, appearance_fwd_bwd_ms=app_fwd_bwd_ms,
+         box_views=n_box, box_sweep_ms_per_view=sweep_ms / n_box,
+         box_view_stats=k3, densify_host_ms=densify_ms,
+         miou_sweep_ms_per_view=miou_ms, miou_sweep=sweep, library_ms=None)
+    emit(phase="train_tnt_profile", **profile)
+    return dict(launches=launches,
+                max_abs_err=max(fwd_err, worst_error(groups),
+                                k3["imp_max_abs_err"]))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1849,20 +2316,25 @@ def main() -> int:
     hl = phase_host_loop(device)
     mp = phase_microprobe(device)
     ms = phase_mesh(device)
+    tnt = phase_train_tnt(device)
     # launches: each kernel's count on the main path of the slice that
     # brought it (the training run for K1 and K2, the host loop's run for
     # K3, the microprobe's entry point for K4), and K1's on the mesh path
     # (``launches_mesh``, one per fused view); the forward kernel's times
     # are those of the render path's view, the stats kernel's those of the
     # host loop's first densify view, the probe's those of `full` at the
-    # protocol shape
+    # protocol shape; ``launches_train_tnt`` counts each kernel's launches
+    # on the TNT recipe's run (phase train_tnt)
+    tnt_launches = tnt["launches"]
     emit(kernels=[{
         "name": "rasterize_fwd", "route": "cuda",
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_fwd.cu",
         "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:532",
         "launches": tr["launches"]["rasterize_fwd"],
         "launches_mesh": ms["launches"],
-        "max_abs_err": max(worst, sl["max_abs_err"], ms["max_abs_err"]),
+        "launches_train_tnt": tnt_launches["rasterize_fwd"],
+        "max_abs_err": max(worst, sl["max_abs_err"], ms["max_abs_err"],
+                           tnt["max_abs_err"]),
         "ms": sl["kernel_ms"], "plain_ms": sl["plain_ms"],
         "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
         "library_ms": None}, {
@@ -1870,7 +2342,8 @@ def main() -> int:
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_bwd.cu",
         "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:800",
         "launches": tr["launches"]["rasterize_bwd"],
-        "max_abs_err": max(worst_bwd, tr["max_abs_err"]),
+        "launches_train_tnt": tnt_launches["rasterize_bwd"],
+        "max_abs_err": max(worst_bwd, tr["max_abs_err"], tnt["max_abs_err"]),
         "ms": tr["kernel_ms"], "plain_ms": tr["plain_ms"],
         "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
         "library_ms": None}, {
@@ -1878,7 +2351,9 @@ def main() -> int:
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_stats.cu",
         "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:923",
         "launches": hl["launches"]["rasterize_stats"],
-        "max_abs_err": max(worst_stats, hl["max_abs_err"]),
+        "launches_train_tnt": tnt_launches["rasterize_stats"],
+        "max_abs_err": max(worst_stats, hl["max_abs_err"],
+                           tnt["max_abs_err"]),
         "ms": hl["kernel_ms"], "plain_ms": hl["plain_ms"],
         "bound_ms": hl["bound_ms"], "bound_by": hl["bound_by"],
         "library_ms": None}, {

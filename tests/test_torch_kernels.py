@@ -303,3 +303,116 @@ def test_nn_and_downsample_on_card_match_scipy(cuda):
     np.testing.assert_array_equal(
         GE.radius_downsample(pts, 2.0, device=cuda),
         GE.radius_downsample(pts, 2.0, device="cpu"))
+
+
+def shell_state(device, n=4000, ch_sem=0, seed=0):
+    """A state of ``n`` Gaussians on a sphere shell of radius 1.5 at z = 4
+    and its box (trans, scale)."""
+    import numpy as np
+
+    from vcr_gaus_tpu_torch.models.gaussians import create_from_pcd
+
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    pts = (1.5 * d / np.linalg.norm(d, axis=1, keepdims=True)
+           + [0.0, 0.0, 4.0]).astype(np.float32)
+    state = create_from_pcd(pts, rng.uniform(0, 1, (n, 3)), 2 * n, 3,
+                            ch_sem, device=device)
+    return state, np.array([0.0, 0.0, 4.0], np.float32), np.full(
+        3, 1.65, np.float32)
+
+
+def test_rasterize_stats_on_box_view(cuda):
+    """K3 on 512x512 views at a 2.5 rad field of view from the random box
+    cameras, as a densify of the TNT recipe renders them: hit counts
+    exactly, importance at the forward tolerance."""
+    from chip_smoke import FWD, stats_inputs
+    from vcr_gaus_tpu_torch.data.box_cameras import sample_box_cameras
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.render.renderer import RenderConfig
+
+    state, trans, scale = shell_state(cuda)
+    cams = sample_box_cameras(200, trans, scale, sample_mode="random",
+                              size=512, seed=20, device=cuda)
+    assert len(cams) == 198
+    rcfg = RenderConfig(width=512, height=512)
+    hits = 0
+    for cam in (cams[0], cams[100]):                # a top and a side view
+        feats, binn, w, h = stats_inputs(state, cam, rcfg)
+        got = R.rasterize_stats(feats, binn, w, h)
+        want, _ = R.composite_tiles_stats_torch(
+            feats, binn.sorted_gid, binn.tile_starts, binn.tile_counts,
+            B.tile_grid(w, h)[0], w, h)
+        assert torch.equal(got[:, 0], want[:, 0])
+        torch.testing.assert_close(got[:, 1], want[:, 1], **FWD)
+        hits += int((got[:, 0] > 0).sum())
+    assert hits > 0
+
+
+def test_tnt_step_on_card_matches_cpu(cuda):
+    """One step of the TNT recipe (the appearance network, two semantic
+    channels, the classifier; entropy and mono_depth on) at 64x64 on the
+    card and on the CPU from the same state, side networks and camera:
+    every loss at rtol 1e-4, each parameter group's first Adam moment (0.1
+    of its gradient) at 2e-3 of its largest, the side networks' too."""
+    import os
+
+    import numpy as np
+
+    from vcr_gaus_tpu_torch.config import Config
+    from vcr_gaus_tpu_torch.data.cameras import Camera
+    from vcr_gaus_tpu_torch.render.renderer import RenderConfig
+    from vcr_gaus_tpu_torch.train import trainer as T
+    from vcr_gaus_tpu_torch.train.side_nets import SideNets
+
+    cfg = Config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "tnt", "base.yaml"))
+    weights = {**T.recipe_weights(cfg), "entropy": 0.01, "mono_depth": 0.01}
+    rng = np.random.default_rng(1)
+    nrm = rng.normal(size=(3, 64, 64)).astype(np.float32)
+    view = Camera(colmap_id=0, idx=1, image_name="v", R=np.eye(3),
+                  T=np.zeros(3), fovx=0.9, fovy=0.9, width=64, height=64,
+                  image=rng.uniform(0, 1, (3, 64, 64)).astype(np.float32),
+                  normal=nrm / np.linalg.norm(nrm, axis=0),
+                  depth=rng.uniform(0.1, 1, (64, 64)).astype(np.float32),
+                  mask=rng.integers(0, 2, (64, 64)).astype(np.int32))
+    out = []
+    for dev in ("cpu", cuda):
+        state, trans, scale = shell_state(dev, n=2000, ch_sem=2)
+        nets = SideNets(cfg, 3, 2, 2, torch.Generator().manual_seed(0),
+                        torch.device(dev))
+        step = T.make_train_step(cfg, RenderConfig(64, 64, ch_sem=2,
+                                                   depth_mode="intersection",
+                                                   mask_depth_thr=0.8),
+                                 weights, 3.0, trans, scale, 2)
+        new, losses, _ = step(state, view.arrays(dev),
+                              torch.tensor([0.1, 0.2, 0.3], device=dev),
+                              1e-3, 3, T.Gates(*(True,) * 5), nets)
+        out.append((new, losses, nets.state_dict()))
+    (cpu, l_cpu, n_cpu), (card, l_card, n_card) = out
+    assert set(l_card) == set(l_cpu) >= {"semantic", "entropy", "mono_depth"}
+    for k, v in l_cpu.items():
+        assert float(l_card[k]) == pytest.approx(float(v), rel=1e-4,
+                                                 abs=1e-7), k
+    for k, want in cpu.adam.mu.as_dict().items():
+        if want.numel():
+            got = getattr(card.adam.mu, k).cpu()
+            scale_g = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=2e-3,
+                                       atol=2e-3 * scale_g)
+    for name in ("app_opt", "cls_opt"):
+        for got, want in zip(leaves(n_card[name]["mu"]),
+                             leaves(n_cpu[name]["mu"])):
+            scale_g = float(np.abs(want).max())
+            np.testing.assert_allclose(got, want, rtol=2e-3,
+                                       atol=2e-3 * scale_g)
+
+
+def leaves(tree) -> list:
+    """The arrays of a tree of dicts and tuples, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]

@@ -316,9 +316,80 @@ def test_extract_mesh_from_state_matches_jax(tmp_path, unbounded):
     for a, b in ((v, jv), (jv, v)):
         assert cKDTree(b).query(a)[0].mean() <= 0.01 * voxel
     if not unbounded:
-        with pytest.raises(NotImplementedError, match="slice C2"):
-            X.extract_mesh_from_state(state, info.train_cameras, rcfg,
-                                      info.trans, info.scale, mask_cut=True)
+        # cameras loaded without masks: the mask cut leaves every view
+        v2, f2 = X.extract_mesh_from_state(
+            state, info.train_cameras, rcfg, info.trans, info.scale,
+            voxel_size=voxel, mask_cut=True, **kw)
+        np.testing.assert_array_equal(v2, v)
+        np.testing.assert_array_equal(f2, f)
+
+
+def test_extract_mesh_mask_cut_matches_jax(tmp_path):
+    """``mask_cut`` with cameras that carry masks (background on the left
+    third of every view, 0 in the blue channel of an RGB PNG, 1 elsewhere)
+    and the semantic background cut through a classifier carried across
+    from flax: the fused meshes match the JAX package's and hold fewer
+    faces than the uncut one."""
+    from PIL import Image
+
+    from vcr_gaus_tpu.data.scene import load_scene_info as jload_scene_info
+    from vcr_gaus_tpu.models import appearance as JAPP
+    from vcr_gaus_tpu_torch.data.scene import load_scene_info
+    from vcr_gaus_tpu_torch.models import appearance as APP
+
+    scene, js, _ = cube_run(tmp_path)
+    os.makedirs(os.path.join(scene, "masks"))
+    label = np.ones((48, 64, 3), np.uint8)
+    label[:, :21, 2] = 0
+    for i in range(8):
+        Image.fromarray(label).save(os.path.join(scene, "masks",
+                                                 f"img_{i:03d}.png"))
+    jinfo = jload_scene_info(scene, load_mask=True)
+    info = load_scene_info(scene, load_mask=True)
+    jrcfg = JRenderConfig(64, 48, entry_budget=1 << 15, mask_depth_thr=1e9)
+    rcfg = RenderConfig(64, 48, mask_depth_thr=1e9)
+    kw = dict(voxel_size=0.05, alpha_thr=0.5, max_depth=6.0)
+    jv, jf = JX.extract_mesh_from_state(js, jinfo.train_cameras, jrcfg,
+                                        jinfo.trans, jinfo.scale,
+                                        mask_cut=True, **kw)
+    state = state_from_numpy(
+        {k: np.asarray(v) for k, v in js.params._asdict().items()},
+        np.asarray(js.active), "cpu")
+    v, f = X.extract_mesh_from_state(state, info.train_cameras, rcfg,
+                                     info.trans, info.scale, mask_cut=True,
+                                     **kw)
+    _, f_all = X.extract_mesh_from_state(state, info.train_cameras, rcfg,
+                                         info.trans, info.scale, **kw)
+    assert 1000 < len(jf) < len(f_all)
+    assert abs(len(f) - len(jf)) <= 1e-3 * len(jf)
+    for a, b in ((v, jv), (jv, v)):
+        assert cKDTree(b).query(a)[0].mean() <= 0.01 * 0.05
+
+    # the semantic cut: two one-hot feature channels, class 0 (the
+    # background) on the cube's x < 0 half, a classifier of flax weights on
+    # both sides
+    x = np.asarray(js.params.xyz)[:, 0]
+    sem = np.stack([x < 0, x >= 0], 1)[:, None, :].astype(np.float32)
+    js2 = js._replace(params=js.params._replace(obj_dc=jnp.asarray(sem)))
+    clf = JAPP.SemanticClassifier(2)
+    variables = {"params": {"Dense_0": {
+        "kernel": np.array([[1.0, -1.0], [-1.0, 1.0]], np.float32),
+        "bias": np.zeros(2, np.float32)}}}
+    jv, jf = JX.extract_mesh_from_state(
+        js2, jinfo.train_cameras, jrcfg._replace(ch_sem=2), jinfo.trans,
+        jinfo.scale, sem_classifier=lambda x: clf.apply(variables, x),
+        **kw)
+    state2 = state_from_numpy(
+        {k: np.asarray(v) for k, v in js2.params._asdict().items()},
+        np.asarray(js2.active), "cpu")
+    cls = APP.load_flax(APP.SemanticClassifier(2, 2), variables)
+    v, f = X.extract_mesh_from_state(state2, info.train_cameras,
+                                     rcfg._replace(ch_sem=2), info.trans,
+                                     info.scale, sem_classifier=cls, **kw)
+    assert 0 < len(jf) < len(f_all)
+    assert abs(len(f) - len(jf)) <= 1e-3 * len(jf)
+    for a, b in ((v, jv), (jv, v)):
+        assert cKDTree(b).query(a)[0].mean() <= 0.01 * 0.05
 
 
 def test_mesh_ply_round_trip_matches_jax(tmp_path):
@@ -347,8 +418,13 @@ def test_depth2mesh_cli(tmp_path, capsys):
     assert exc.value.code == 3
     assert "exceeds --max_voxels=1,000" in capsys.readouterr().err
 
-    with pytest.raises(NotImplementedError, match="mask priors"):
-        depth2mesh.main(base + ["--mask_cut", "--no-prune_outliers"])
+    # the CLI loads the scene without masks (as the root depth2mesh.py
+    # does), so --mask_cut cuts nothing
+    plain = X.load_mesh_ply(depth2mesh.main(base + ["--no-prune_outliers"]))
+    cut = X.load_mesh_ply(depth2mesh.main(base + ["--mask_cut",
+                                                  "--no-prune_outliers"]))
+    for a, b in zip(cut, plain):
+        np.testing.assert_array_equal(a, b)
 
     # 300 splats on a 3-wide cube: the radius filter (5 neighbours within
     # 0.01 of the scene radius) finds none, so the inside-box crop is kept

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: importing it loads neither jax nor the JAX
-package, and no source file of the port imports either, nor OpenCV, open3d
-or trimesh, which the machine with the card does not have."""
+"""The PyTorch port stands alone: importing it loads neither jax (nor flax
+or optax) nor the JAX package, and no source file of the port or
+chip_smoke.py imports any of them, nor OpenCV, open3d or trimesh, which the
+machine with the card does not have."""
 
 import os
 import re
@@ -18,7 +19,8 @@ def test_import_loads_no_jax():
         "for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'vcr_gaus_tpu', 'cv2', 'open3d', 'trimesh'))\n"
+        " ('jax', 'flax', 'optax', 'vcr_gaus_tpu', 'cv2', 'open3d',"
+        " 'trimesh'))\n"
         "print(len(list(pkgutil.walk_packages(P.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -28,8 +30,8 @@ def test_import_loads_no_jax():
 
 
 def test_sources_import_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|vcr_gaus_tpu|cv2|open3d|trimesh)"
-                     r"(\.|\s|,|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|vcr_gaus_tpu|cv2|"
+                     r"open3d|trimesh)(\.|\s|,|$)", re.M)
     offenders = []
     n_files = 0
     for root, _, files in os.walk(PKG):
@@ -41,4 +43,7 @@ def test_sources_import_no_jax():
                         offenders.append(os.path.relpath(
                             os.path.join(root, name), REPO))
     assert n_files > 10
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        if pat.search(f.read()):
+            offenders.append("chip_smoke.py")
     assert offenders == []

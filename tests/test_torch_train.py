@@ -303,8 +303,15 @@ def test_normal_prior_read_like_jax(scene_dir, data_device):
         np.testing.assert_array_equal(ga.normal.numpy(), np.asarray(wa.normal))
         assert bool(ga.has_normal) and bool(wa.has_normal)
         np.testing.assert_array_equal(ga.image.numpy(), np.asarray(wa.image))
-    with pytest.raises(NotImplementedError, match="slice C"):
-        load_scene_info(scene_dir, load_depth=True)
+    # the depth and mask priors read alike too (the scene has masks only)
+    kw.update(load_depth=True, load_mask=True)
+    got = load_scene_info(scene_dir, **kw)
+    want = jload_scene_info(scene_dir, **kw)
+    for gc, wc in zip(got.train_cameras, want.train_cameras):
+        ga, wa = gc.arrays("cpu"), wc.arrays()
+        np.testing.assert_array_equal(ga.mask.numpy(), np.asarray(wa.mask))
+        assert bool(ga.has_mask) and bool(wa.has_mask)
+        assert not bool(ga.has_depth) and not bool(wa.has_depth)
 
 
 def test_normal_prior_resized_like_jax(tmp_path):
@@ -393,18 +400,16 @@ def test_train_step_matches_jax():
 
 
 def test_unported_losses_raise():
+    """Every loss of the JAX package and both side networks are ported: a
+    recipe with any of them builds its weights and raises nothing."""
     cfg = Config(os.path.join(REPO, "configs", "config_base.yaml"))
-    cfg.optim.loss_weight.entropy = 0.1
-    with pytest.raises(NotImplementedError, match="slice C"):
-        T.recipe_weights(cfg)
-    cfg.optim.loss_weight.entropy = 0
-    cfg.optim.loss_weight.semantic = 0.1
-    with pytest.raises(NotImplementedError, match="slice E"):
-        T.recipe_weights(cfg)
-    cfg.optim.loss_weight.semantic = 0
+    for name in ("entropy", "mono_depth", "curv", "semantic"):
+        cfg.optim.loss_weight[name] = 0.1
     cfg.model.use_decoupled_appearance = True
-    with pytest.raises(NotImplementedError, match="slice E"):
-        T.recipe_weights(cfg)
+    assert T.recipe_weights(cfg) == {"l1": 0.8, "ssim": 0.2, "entropy": 0.1,
+                                     "mono_depth": 0.1, "curv": 0.1,
+                                     "semantic": 0.1}
+    assert set(T.PORTED_LOSSES) == set(cfg.optim.loss_weight)
 
 
 # --- the Trainer and the CLI -------------------------------------------------------------------
@@ -465,12 +470,17 @@ def test_trainer_trains_then_stops_before_densify(scene_dir, tmp_path):
     assert tr.state.adam.step == 5
     # the statistics restarted at the densify: one visible step since
     assert float(tr.state.denom.max()) == 1.0
-    # the random box cameras are a later slice's
+    # the random box cameras: the densify at 8 draws nothing from the
+    # trainer's generator beyond the cameras of the steps
     tr.cfg.optim.densify_large.sample_cams.random = True
-    with pytest.raises(NotImplementedError, match="iteration 8 would "
-                       "densify with random box cameras"):
-        tr.train(max_iters=10, log_every=2)
-    assert tr.iteration == 7
+    tr.cfg.tpu.visi_resolution = 32
+    draws = []
+    randint = tr.rng.randint
+    tr.rng.randint = lambda a, b: draws.append(1) or randint(a, b)
+    tr.train(max_iters=10, log_every=2)
+    assert tr.iteration == 10 and len(draws) == 5
+    assert [(r["iter"], r["action"]) for r in tr.host_log] == [
+        (4, "densify"), (8, "densify")]
 
 
 def test_train_cli_main_on_cpu(scene_dir, tmp_path, capsys):

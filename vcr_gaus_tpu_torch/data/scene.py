@@ -1,8 +1,12 @@
 """Scene loading: COLMAP / Blender readers (vcr_gaus_tpu/data/scene.py).
 
-Images stay u8 on the host ((3,H,W) uint8, lossless for PNG/JPEG sources)
-and normal priors f16; ``Camera.arrays(device)`` turns them into float32 on
-the device per use. The depth and mask priors wait for slice C of the port.
+Images stay u8 on the host ((3,H,W) uint8, lossless for PNG/JPEG sources),
+normal priors f16, depth priors f32 and masks int32;
+``Camera.arrays(device)`` turns them into tensors on the device per use.
+The priors are read with numpy and PIL as the JAX package reads them with
+OpenCV: a 16-bit depth PNG keeps its integers, a colour mask PNG gives its
+blue channel (OpenCV's channel 0, BGR), a palette PNG the blue value of
+each index's colour.
 """
 
 from __future__ import annotations
@@ -74,25 +78,98 @@ def _resolve_resolution(orig_w: int, orig_h: int, resolution: int,
     return int(orig_w / scale), int(orig_h / scale)
 
 
-def _load_normal(base: str, name: str,
-                 resolution: tuple[int, int]) -> np.ndarray | None:
-    """The (3,H,W) float16 normal prior ``<base>/<stem>.npz`` (``arr_0``,
-    (3,H,W) or (H,W,3)), bilinearly resized to ``resolution`` (W,H) when it
-    differs; None when the file is absent. float16 as the JAX package keeps
-    it (the priors ship as float16)."""
-    path = os.path.join(base, os.path.splitext(name)[0] + ".npz")
-    if not os.path.exists(path):
-        return None
-    with np.load(path) as z:
-        arr = z["arr_0"].astype(np.float32)
-    if arr.shape[0] != 3:
-        arr = arr.transpose(2, 0, 1)
+def _resize_bilinear(arr: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(H, W) or (C, H, W) float32 resized by half-pixel bilinear
+    interpolation without antialiasing (OpenCV's INTER_LINEAR)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    t = t[None, None] if t.ndim == 2 else t[None]
+    out = torch.nn.functional.interpolate(t, size=(h, w), mode="bilinear",
+                                          align_corners=False,
+                                          antialias=False)[0]
+    return (out[0] if arr.ndim == 2 else out).numpy()
+
+
+def _resize_nearest(arr: np.ndarray, h: int, w: int) -> np.ndarray:
+    """(H, W) resized as OpenCV's INTER_NEAREST: source index
+    floor(dst / (dst_size / src_size)) in double precision."""
+    sh, sw = arr.shape
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(
+        np.int64), sh - 1)
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(
+        np.int64), sw - 1)
+    return arr[ys][:, xs]
+
+
+def _read_png(path: str) -> np.ndarray:
+    """A PNG's samples as OpenCV's IMREAD_UNCHANGED gives them, with the
+    colour channels in RGB(A) order: 16-bit greyscale stays uint16, a
+    palette expands to its colours."""
+    from PIL import Image
+    with Image.open(path) as img:
+        if img.mode == "P":
+            img = img.convert("RGB")
+        return np.asarray(img)
+
+
+def _load_aux(base: str, name: str, kind: str,
+              resolution: tuple[int, int]) -> np.ndarray | None:
+    """The prior of image ``name`` under ``base``, resized to
+    ``resolution`` (W, H) when it differs, or None when absent: depth
+    (H, W) float32 from ``<stem>.npz`` (``arr_0``) or a (16-bit) ``.png``;
+    normal (3, H, W) float16 from ``<stem>.npz`` ((3,H,W) or (H,W,3)); mask
+    (H, W) int32 from ``<stem>.png``, else from ``name[1:]``, the first
+    letter dropped as the reference's reader does. A colour mask gives its
+    blue channel (PIL's channel 2; a grey-alpha one its grey)."""
+    stem = os.path.splitext(name)[0]
     w, h = resolution
-    if arr.shape[1:] != (h, w):
-        arr = torch.nn.functional.interpolate(
-            torch.from_numpy(arr)[None], size=(h, w), mode="bilinear",
-            align_corners=False)[0].numpy()
-    return arr.astype(np.float16)
+    if kind in ("depth", "normal"):
+        npz = os.path.join(base, stem + ".npz")
+        png = os.path.join(base, stem + ".png")
+        if os.path.exists(npz):
+            with np.load(npz) as z:
+                arr = z["arr_0"].astype(np.float32)
+        elif kind == "depth" and os.path.exists(png):
+            arr = _read_png(png).astype(np.float32)
+        else:
+            return None
+        if kind == "normal":
+            if arr.shape[0] != 3:
+                arr = arr.transpose(2, 0, 1)
+            if arr.shape[1:] != (h, w):
+                arr = _resize_bilinear(arr, h, w)
+            # float16 as the JAX package keeps it (the priors ship as f16)
+            return arr.astype(np.float16)
+        if arr.shape[:2] != (h, w):
+            arr = _resize_bilinear(arr, h, w)
+        return arr
+    if kind == "mask":
+        p = os.path.join(base, stem + ".png")
+        if not os.path.exists(p):
+            p = os.path.join(base, name[1:])
+        if not os.path.exists(p):
+            return None
+        m = _read_png(p)
+        if m.ndim == 3:
+            m = m[..., 2] if m.shape[2] >= 3 else m[..., 0]
+        if m.shape != (h, w):
+            m = _resize_nearest(m, h, w)
+        return m.astype(np.int32)
+    return None
+
+
+def _aux_exists(base: str, name: str, kind: str) -> bool:
+    """Whether ``_load_aux`` would find a file, by path probes only (the
+    lazy mode's has_* flags)."""
+    stem = os.path.splitext(name)[0]
+    if kind in ("depth", "normal"):
+        if os.path.exists(os.path.join(base, stem + ".npz")):
+            return True
+        return kind == "depth" and os.path.exists(
+            os.path.join(base, stem + ".png"))
+    if kind == "mask":
+        return (os.path.exists(os.path.join(base, stem + ".png"))
+                or os.path.exists(os.path.join(base, name[1:])))
+    return False
 
 
 def read_colmap_scene(
@@ -111,13 +188,10 @@ def read_colmap_scene(
     filter_pcd: bool = True,
     data_device: str = "host",
 ) -> SceneInfo:
-    """data_device: 'host' keeps u8 images (and f16 normal priors) in host
-    RAM; 'lazy' keeps only their paths and decodes on each use. The normal
-    prior of image ``x.png`` is ``<normal_folder>/x.npz`` beside the image
-    folder."""
-    if load_depth or load_mask:
-        raise NotImplementedError(
-            "depth and mask priors come with slice C of the port")
+    """data_device: 'host' keeps u8 images and the priors in host RAM;
+    'lazy' keeps only their paths and decodes on each use. The priors of
+    image ``x.png`` live beside the image folder: ``<normal_folder>/x.npz``,
+    ``<depth_folder>/x.npz`` (or ``x.png``) and ``masks/x.png``."""
     colmap_dir = os.path.join(path, "sparse/0")
     if not os.path.exists(colmap_dir):
         colmap_dir = os.path.join(path, "sparse")
@@ -147,24 +221,30 @@ def read_colmap_scene(
         name = os.path.basename(e.name)
         res = _resolve_resolution(ic.width, ic.height, resolution)
         img_path = os.path.join(img_root, name)
+        aux_bases = {"depth": img_root.replace("images", depth_folder),
+                     "normal": img_root.replace("images", normal_folder),
+                     "mask": img_root.replace("images", "masks")}
+        wanted = {"depth": load_depth, "normal": load_normal,
+                  "mask": load_mask}
         specs = {"image": lambda p=img_path, r=res: _load_image(p, r)}
-        nrm_base = img_root.replace("images", normal_folder)
-        if load_normal:
-            specs["normal"] = (lambda b=nrm_base, n=name, r=res:
-                               _load_normal(b, n, r))
+        for kind, base in aux_bases.items():
+            if wanted[kind]:
+                specs[kind] = (lambda b=base, n=name, r=res, k=kind:
+                               _load_aux(b, n, k, r))
         if data_device == "lazy":
-            # path probes only, so has_normal is known without decoding
-            loaders = {k: fn for k, fn in specs.items() if k == "image"
-                       or os.path.exists(os.path.join(
-                           nrm_base, os.path.splitext(name)[0] + ".npz"))}
+            # path probes only, so the has_* flags are known without decoding
+            loaders = {k: fn for k, fn in specs.items()
+                       if k == "image" or _aux_exists(aux_bases[k], name, k)}
             eager = {}
         else:
             loaders = None
-            eager = {k: fn() for k, fn in specs.items()}
+            eager = {k: v for k, v in ((k, fn()) for k, fn in specs.items())
+                     if v is not None}
         cams.append(Camera(
             colmap_id=ic.id, idx=0, image_name=os.path.splitext(name)[0],
             R=R, T=T, fovx=fovx, fovy=fovy, width=res[0], height=res[1],
-            image=eager.get("image"), normal=eager.get("normal"),
+            image=eager.get("image"), depth=eager.get("depth"),
+            normal=eager.get("normal"), mask=eager.get("mask"),
             loaders=loaders))
     cams.sort(key=lambda c: c.image_name)
 

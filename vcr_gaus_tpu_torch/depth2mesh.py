@@ -79,8 +79,9 @@ def main(argv: list[str] | None = None) -> str:
                          "render")
     ap.add_argument("--mask_cut", action="store_true",
                     help="zero depth where the camera's stored foreground "
-                         "mask is background before fusing (needs the mask "
-                         "priors of a later slice; raises for now)")
+                         "mask is background before fusing (the scene is "
+                         "loaded without masks, as by the root "
+                         "depth2mesh.py, so this cuts nothing here)")
     ap.add_argument("--unbounded", action="store_true",
                     help="mip-360 contraction meshing for unbounded scenes "
                          "instead of the bounded box grid")

@@ -22,14 +22,28 @@ def _view_arrays(cam, device):
 
 @torch.no_grad()
 def _view_depth(state, arr, rcfg, bg, sh_degree, scene_extent, alpha_thr,
-                normalize_depth):
-    """A view's depth, alpha-normalized (depth / max(alpha, 1e-6)) or raw,
-    zero where alpha <= alpha_thr."""
-    out = render(state, arr, rcfg, bg, sh_degree, scene_extent=scene_extent)
+                normalize_depth, classifier=None):
+    """(A view's depth, alpha-normalized (depth / max(alpha, 1e-6)) or raw,
+    zero where alpha <= alpha_thr; the render's outputs)."""
+    out = render(state, arr, rcfg, bg, sh_degree, scene_extent=scene_extent,
+                 classifier=classifier)
     alpha = out["alpha"]
     depth = (out["depth"] / torch.clamp_min(alpha, 1e-6) if normalize_depth
              else out["depth"])
-    return T.mask_depth(depth, alpha, alpha_thr)
+    return T.mask_depth(depth, alpha, alpha_thr), out
+
+
+def _foreground(cam, rcfg, device) -> torch.Tensor | None:
+    """The camera's stored mask > 0 at the render's size, or None when it
+    has none (only the mask is decoded)."""
+    m = (cam._component("mask") if isinstance(cam, Camera)
+         else getattr(cam, "mask", None))
+    if m is None:
+        return None
+    m = torch.as_tensor(np.asarray(m.cpu() if torch.is_tensor(m) else m))
+    if tuple(m.shape) != (rcfg.height, rcfg.width):
+        return None
+    return (m > 0).to(device)
 
 
 def _background(bg_color, device) -> torch.Tensor:
@@ -48,6 +62,8 @@ def extract_mesh_from_state(
     alpha_thr: float = 0.5,
     stride: int = 1,
     max_depth: float | None = None,
+    sem_classifier=None,
+    background_cls: int = 0,
     min_weight: float = 1.0,
     n_clusters: int = 1,
     sh_degree: int = 3,
@@ -61,21 +77,25 @@ def extract_mesh_from_state(
     grid and extract the isosurface; runs on the state's device. Returns
     (verts (V,3), faces (F,3)).
 
-    Per view: alpha <= alpha_thr -> 0, depth >= max_depth -> 0, a
-    back-projected point outside the meta box -> 0. ``normalize_depth``
-    fuses depth / alpha (the expected depth) in place of the raw
-    alpha-weighted render."""
-    if mask_cut:
-        raise NotImplementedError(
-            "mask_cut needs the cameras' mask priors, which come with slice "
-            "C2 of the port (ROADMAP item 7: mask priors)")
+    Per view: alpha <= alpha_thr -> 0, with ``mask_cut`` a pixel the
+    camera's stored mask marks as background (<= 0) -> 0 (a camera without
+    a mask of the render's size is not cut), depth >= max_depth -> 0, a
+    back-projected point outside the meta box -> 0, and with
+    ``sem_classifier`` (a callable (S,H,W) -> (num_cls,H,W)) a pixel whose
+    argmax class is ``background_cls`` -> 0. ``normalize_depth`` fuses
+    depth / alpha (the expected depth) in place of the raw alpha-weighted
+    render."""
     dev = state.params.xyz.device
     grid = T.create_grid(trans, scale, voxel_size, device=dev)
     bg = _background(bg_color, dev)
     for idx, cam in enumerate(cameras[::stride]):
         arr = _view_arrays(cam, dev)
-        depth = _view_depth(state, arr, rcfg, bg, sh_degree, scene_extent,
-                            alpha_thr, normalize_depth)
+        depth, out = _view_depth(state, arr, rcfg, bg, sh_degree,
+                                 scene_extent, alpha_thr, normalize_depth,
+                                 sem_classifier)
+        fg = _foreground(cam, rcfg, dev) if mask_cut else None
+        if fg is not None:
+            depth = torch.where(fg, depth, 0.0)
         if max_depth is not None:
             depth = torch.where(depth < max_depth, depth, 0.0)
         K = torch.eye(3, device=dev)
@@ -84,6 +104,9 @@ def extract_mesh_from_state(
         inside, _ = M.get_inside_normalized(world.reshape(-1, 3), trans,
                                             scale)
         depth = torch.where(inside.reshape(depth.shape), depth, 0.0)
+        if sem_classifier is not None and "render_sem" in out:
+            labels = torch.argmax(out["render_sem"], dim=0)
+            depth = torch.where(labels != background_cls, depth, 0.0)
         T.integrate(grid, depth, arr.viewmatrix, arr.intr)
         if progress is not None:
             progress(idx)
@@ -117,8 +140,8 @@ def extract_mesh_unbounded_from_state(
     bg = _background(bg_color, dev)
     for idx, cam in enumerate(cameras[::stride]):
         arr = _view_arrays(cam, dev)
-        depth = _view_depth(state, arr, rcfg, bg, sh_degree, scene_extent,
-                            alpha_thr, normalize_depth)
+        depth, _ = _view_depth(state, arr, rcfg, bg, sh_degree,
+                               scene_extent, alpha_thr, normalize_depth)
         T.integrate(grid, depth, arr.viewmatrix, arr.intr)
         if progress is not None:
             progress(idx)

@@ -5,13 +5,18 @@ The vertex layout is the reference 3DGS one: x,y,z, nx,ny,nz(=0),
 f_dc_0..2, f_rest_0..3K-1 (channel-major), opacity, scale_0..2, rot_0..3
 [, obj_dc_0..S-1], all raw (pre-activation) float32. Only the active slots
 are written. Checkpoints are the JAX package's .npz, key for key, so either
-package resumes from the other's.
+package resumes from the other's. Their ``extra`` entry is a pickle, read
+by an unpickler that takes numpy arrays and the two optax classes a JAX
+checkpoint with side networks names (mapped to look-alikes here: the port
+does not import optax) and refuses every other global.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -20,6 +25,40 @@ from ..utils.ply import read_ply, write_ply
 from .convert import (STATS, state_from_arrays, state_from_numpy,
                       state_to_arrays, state_to_numpy)
 from .gaussians import GaussianState
+
+
+class ScaleByAdamState(NamedTuple):
+    """Stands in for optax's ``ScaleByAdamState`` in a JAX checkpoint."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class EmptyState(NamedTuple):
+    """Stands in for optax's ``EmptyState`` in a JAX checkpoint."""
+
+
+_NUMPY_MODULES = {"numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                  "numpy.core.numeric", "numpy._core.numeric"}
+_NUMPY_NAMES = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
+_OPTAX = {("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState,
+          ("optax._src.base", "EmptyState"): EmptyState}
+
+
+class _ExtraUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module in _NUMPY_MODULES and name in _NUMPY_NAMES:
+            return super().find_class(module, name)
+        if (module, name) in _OPTAX:
+            return _OPTAX[(module, name)]
+        raise pickle.UnpicklingError(
+            f"checkpoint extra names {module}.{name}: refused")
+
+
+def load_extra(data: bytes) -> Any:
+    """Unpickle a checkpoint's ``extra``: numpy arrays, plain containers and
+    the optax Adam state; any other global raises UnpicklingError."""
+    return _ExtraUnpickler(io.BytesIO(data)).load()
 
 
 def _compact(state: GaussianState) -> dict[str, np.ndarray]:
@@ -132,7 +171,7 @@ def load_checkpoint(path: str, device: str | torch.device = "cuda"
               "step": int(z["adam_step"]), "active": z["active"],
               "active_sh_degree": int(z["active_sh_degree"]),
               **{k: z[k] for k in STATS}}
-    extra = pickle.loads(z["extra"].tobytes()) if "extra" in z.files else {}
+    extra = load_extra(z["extra"].tobytes()) if "extra" in z.files else {}
     return state_from_arrays(arrays, device), int(z["iteration"]), extra
 
 

@@ -35,11 +35,14 @@ class RenderConfig(NamedTuple):
 def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
            bg_color: torch.Tensor, sh_degree: int,
            scene_extent: float = 1.0,
-           densify_dummy: torch.Tensor | None = None) -> dict[str, Any]:
+           densify_dummy: torch.Tensor | None = None,
+           classifier=None) -> dict[str, Any]:
     """The JAX package's output dict: render (3,H,W), depth (H,W), normal
     (H,W,3), est_normal (H,W,3), alpha (H,W), mask (H,W) bool, radii (C,),
     visibility_filter (C,), densify_dummy (C,2), num_entries, overflow
-    (always False), depth_var, distortion, and render_sem when ch_sem > 0.
+    (always False), depth_var, distortion, and render_sem when ch_sem > 0:
+    the (S,H,W) semantic features, or ``classifier`` of them, (num_cls,H,W)
+    logits, when one is given.
     Runs on the device of the state's tensors and is differentiable in the
     state's parameters through torch.autograd; differentiate with respect
     to ``densify_dummy`` (zeros) for the |d mean2d| stream."""
@@ -108,7 +111,9 @@ def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
             "distortion": L.distortion_from_moments(alpha, wd_sum, wd2_sum),
         }
         if cfg.ch_sem:
-            out["render_sem"] = img[9:9 + cfg.ch_sem]
+            sem_feat = img[9:9 + cfg.ch_sem]
+            out["render_sem"] = (classifier(sem_feat) if classifier is not None
+                                 else sem_feat)
     return out
 
 

@@ -8,7 +8,12 @@
 Runs the recipe's schedule to ``optim.iterations`` (densify, opacity
 resets, the LightGaussian prune, test sweeps, PLY and checkpoint saves, the
 final importance dump), saves the PLY beside the saved ``config.yaml`` and
-prints the final PSNR/L1 over the train split.
+prints the final PSNR/L1 (and mIoU with the semantic head) over the train
+split, then closes the metric writers (``VCR_TB=1``: TensorBoard under
+``<logdir>/tb``; ``VCR_WANDB=1``: wandb). Every recipe of ``configs/``
+trains: DTU, Mip-NeRF 360, ``reconstruct.yaml`` with its random box cameras,
+ScanNet++ and Tanks and Temples with the appearance network and the
+semantic head.
 ``--train.start_checkpoint=<logdir>/chkpnt<it>.npz`` resumes from a
 checkpoint written by either package, at the iteration after it.
 ``--seed`` is parsed and dropped, as the root ``train.py`` does: the run's
@@ -55,6 +60,7 @@ def main(argv: list[str] | None = None):
     metrics = trainer.evaluate(
         max_cams=int(getattr(cfg.tpu, "eval_max_cams", 0) or 0))
     print("final:", metrics, flush=True)
+    trainer.finalize()
     return trainer
 
 

@@ -1,11 +1,13 @@
-"""Losses (vcr_gaus_tpu/train/losses.py): those of the DTU and reconstruct
-recipes, SSIM and the depth moments. Entropy, the scale-and-shift-invariant
-depth loss, normal2curv and the semantic cross entropy come with the
-recipes that use them. Images are (C, H, W) float32."""
+"""Losses (vcr_gaus_tpu/train/losses.py): those of every recipe in
+``configs/`` (L1, SSIM, the normal losses, the opacity entropy, the
+scale-and-shift-invariant depth loss, the normal curvature, the edge-aware
+distortion, the semantic cross entropy) and the depth moments. Images are
+(C, H, W) float32."""
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -13,6 +15,17 @@ import torch
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.abs(pred - gt).mean()
+
+
+def entropy_loss(opacity, mask=None):
+    """Binary entropy of the opacities, averaged over the Gaussians ``mask``
+    selects (over all without one)."""
+    e = (-opacity * torch.log(opacity + 1e-6)
+         - (1 - opacity) * torch.log(1 - opacity + 1e-6))
+    if mask is None:
+        return e.mean()
+    m = mask.to(e.dtype)
+    return torch.sum(e * m) / torch.clamp_min(torch.sum(m), 1.0)
 
 
 def monosdf_normal_loss(normal_pred, normal_gt, weight=None):
@@ -48,6 +61,102 @@ def cos_weight(render_normal, gt_normal, exp_t: float = 1.0):
     else:
         cos = torch.ones_like(cos)
     return cos.detach()
+
+
+def normal2curv(normal, mask):
+    """4-neighbour normal curvature magnitude: normal (H,W,3), mask (H,W,1)
+    float -> (H,W,1). The borders repeat the edge (``jnp.pad`` mode
+    "edge", replicate padding on (1, C, H, W))."""
+    def pad(x):
+        x = x.permute(2, 0, 1)[None]
+        return torch.nn.functional.pad(x, (1, 1, 1, 1), mode="replicate"
+                                       )[0].permute(1, 2, 0)
+
+    n = pad(normal)
+    m = pad(mask.to(torch.float32))
+    n_c = n[1:-1, 1:-1] * m[1:-1, 1:-1]
+    n_u = (n[:-2, 1:-1] - n_c) * m[:-2, 1:-1]
+    n_l = (n[1:-1, :-2] - n_c) * m[1:-1, :-2]
+    n_b = (n[2:, 1:-1] - n_c) * m[2:, 1:-1]
+    n_r = (n[1:-1, 2:] - n_c) * m[1:-1, 2:]
+    curv = (n_u + n_l + n_b + n_r) * mask
+    return torch.abs(curv).sum(-1, keepdim=True)
+
+
+def _safe_div(num, den):
+    """num / den, and 0 where den == 0 with a zero gradient there (the JAX
+    package's where(den == 0, 0, num / den) has a NaN gradient there)."""
+    empty = den == 0
+    return torch.where(empty, 0.0, num / torch.where(empty, 1.0, den))
+
+
+def _compute_scale_and_shift(prediction, target, mask):
+    """Closed-form least-squares scale and shift per image; (B, H, W)."""
+    a_00 = torch.sum(mask * prediction * prediction, (1, 2))
+    a_01 = torch.sum(mask * prediction, (1, 2))
+    a_11 = torch.sum(mask, (1, 2))
+    b_0 = torch.sum(mask * prediction * target, (1, 2))
+    b_1 = torch.sum(mask * target, (1, 2))
+    det = a_00 * a_11 - a_01 * a_01
+    return (_safe_div(a_11 * b_0 - a_01 * b_1, det),
+            _safe_div(-a_01 * b_0 + a_00 * b_1, det))
+
+
+def _ssi_mse(prediction, target, mask):
+    M = torch.sum(mask, (1, 2))
+    res = prediction - target
+    image_loss = torch.sum(mask * res * res, (1, 2))
+    return _safe_div(torch.sum(image_loss), torch.sum(2 * M))
+
+
+def _ssi_gradient(prediction, target, mask):
+    M = torch.sum(mask, (1, 2))
+    diff = (prediction - target) * mask
+    grad_x = torch.abs(diff[:, :, 1:] - diff[:, :, :-1]) * (
+        mask[:, :, 1:] * mask[:, :, :-1])
+    grad_y = torch.abs(diff[:, 1:, :] - diff[:, :-1, :]) * (
+        mask[:, 1:, :] * mask[:, :-1, :])
+    image_loss = torch.sum(grad_x, (1, 2)) + torch.sum(grad_y, (1, 2))
+    return _safe_div(torch.sum(image_loss), torch.sum(M))
+
+
+def scale_and_shift_invariant_depth_loss(prediction, target, mask=None,
+                                         alpha: float = 0.5, scales: int = 1):
+    """MiDaS scale-and-shift-invariant loss: the target is remapped to
+    target * 50 + 0.5, the prediction aligned to it per image by least
+    squares, then the masked MSE plus alpha times the multi-scale gradient
+    matching. Inputs (H, W) or (B, H, W). On an empty mask the value is 0,
+    as in the JAX package, and so is the gradient (NaN there)."""
+    if prediction.ndim == 2:
+        prediction = prediction[None]
+        target = target[None]
+        if mask is not None and mask.ndim == 2:
+            mask = mask[None]
+    target = target * 50.0 + 0.5
+    if mask is None:
+        mask = torch.ones_like(target)
+    mask = mask.to(prediction.dtype)
+    scale, shift = _compute_scale_and_shift(prediction, target, mask)
+    pred_ssi = scale[:, None, None] * prediction + shift[:, None, None]
+    total = _ssi_mse(pred_ssi, target, mask)
+    if alpha > 0:
+        for s in range(scales):
+            step = 2 ** s
+            total = total + alpha * _ssi_gradient(
+                pred_ssi[:, ::step, ::step], target[:, ::step, ::step],
+                mask[:, ::step, ::step])
+    return total
+
+
+def semantic_cross_entropy(logits, labels, num_cls: int):
+    """Pixel cross entropy normalized by log(num_cls): logits (num_cls, H,
+    W), labels (H, W) int. A label outside [0, num_cls) has a zero one-hot
+    row, as ``jax.nn.one_hot`` gives: it adds 0 and counts in the mean."""
+    lp = torch.log_softmax(logits, dim=0)
+    classes = torch.arange(num_cls, device=labels.device)
+    onehot = (labels[None] == classes[:, None, None]).to(lp.dtype)
+    ce = -(onehot * lp).sum(0).mean()
+    return ce / math.log(num_cls)
 
 
 def edge_aware_distortion_map(gt_image, distortion_map):

@@ -1,19 +1,21 @@
 """Training: the step and the host loop (vcr_gaus_tpu/train/trainer.py).
 
-One step renders a camera, assembles the recipe's losses, takes the
-gradient of the total over the parameters and the densify dummy, masks it
-to the active slots, runs Adam with the per-group learning rates and adds
-the densification statistics. ``Trainer`` loads the scene, initializes the
-state from its point cloud (or a checkpoint) and runs the schedule: steps in
-the JAX package's camera order, then the host actions of each iteration
-(densify with the box-guided split, opacity reset, capacity growth, the
-LightGaussian prune), the test sweeps with their panels, the PLY and
-checkpoint saves and the final importance dump. The stats sweeps behind the
-box mask and the prune run the stats kernel once per view.
-
-The random box cameras (``densify_large.sample_cams.random: true``) come
-with a later slice of the port: ``train`` raises NotImplementedError before
-an iteration that would densify with them. The learning-rate schedule, the
+One step renders a camera (through the semantic classifier when the recipe
+has one), assembles the recipe's losses (the L1 through the appearance
+network when it has one), takes the gradient of the total over the
+parameters, the densify dummy and the side networks, masks the Gaussians'
+gradient to the active slots, runs Adam with the per-group learning rates,
+adds the densification statistics and steps the side networks' Adam.
+``Trainer`` loads the scene and its priors, initializes the state from its
+point cloud (or a checkpoint) and runs the schedule: steps in the JAX
+package's camera order, then the host actions of each iteration (densify
+with the box-guided split, over training views or random cameras on the
+box; opacity reset, capacity growth, the LightGaussian prune), the test
+sweeps with their panels and mIoU, the metric writers (TensorBoard with
+``VCR_TB=1``, wandb with ``VCR_WANDB=1``, each skipped with a printed line
+when its package is absent), the PLY, ``model.pkl`` and checkpoint saves
+and the final importance dump. The stats sweeps behind the box mask and the
+prune run the stats kernel once per view. The learning-rate schedule, the
 SH degree warmup and the loss gates follow the iteration as in the JAX
 package. The JAX package's entry budget, overflow handling, supersteps
 (``tpu.steps_per_call``), binning lookahead and camera cache exist for its
@@ -23,10 +25,13 @@ is that of its single-step path (``tpu.steps_per_call: 1``).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import pickle
 import random
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -34,8 +39,10 @@ import torch
 from torch.profiler import record_function
 
 from ..compat.arguments import write_cfg_args
+from ..data.box_cameras import sample_box_cameras
 from ..data.cameras import CameraArrays
 from ..data.scene import camera_to_json, load_scene_info
+from ..models import appearance as APP
 from ..models import gaussians as GM
 from ..models import ply_io
 from ..render.renderer import RenderConfig, render, render_stats
@@ -43,12 +50,12 @@ from ..utils import math as M
 from ..utils.device import resolve_device
 from . import losses as L
 from . import visualization as VZ
+from .side_nets import SideNets
 
-# losses this slice computes, and the slice that brings each other one
-PORTED_LOSSES = ("l1", "ssim", "l1_scale", "mono_normal", "depth_normal",
-                 "consistent_normal", "distortion", "depth_var")
-LATER_LOSSES = {"entropy": "slice C", "mono_depth": "slice C",
-                "curv": "slice C", "semantic": "slice E"}
+# every loss of the JAX package's compute_losses
+PORTED_LOSSES = ("l1", "ssim", "l1_scale", "entropy", "mono_depth",
+                 "mono_normal", "depth_normal", "curv", "consistent_normal",
+                 "distortion", "depth_var", "semantic")
 
 
 class Gates(NamedTuple):
@@ -61,35 +68,42 @@ class Gates(NamedTuple):
 
 
 def recipe_weights(cfg) -> dict[str, float]:
-    """The recipe's positive loss weights; raises for a loss or network
-    that a later slice of the port brings."""
-    w = {k: float(v) for k, v in cfg.optim.loss_weight.items()
-         if float(v) > 0}
-    for name in w:
-        if name not in PORTED_LOSSES:
-            raise NotImplementedError(
-                f"loss '{name}' comes with "
-                f"{LATER_LOSSES.get(name, 'a later slice')} of the port")
-    if cfg.model.use_decoupled_appearance:
-        raise NotImplementedError(
-            "the decoupled appearance network comes with slice E of the port")
-    return w
+    """The recipe's positive loss weights."""
+    return {k: float(v) for k, v in cfg.optim.loss_weight.items()
+            if float(v) > 0}
 
 
 def compute_losses(out: dict, cam: CameraArrays, state: GM.GaussianState,
                    weights: dict, gates: Gates, cfg,
-                   inside_mask: torch.Tensor):
-    """(total, {name: loss}) of the recipe, as the JAX compute_losses."""
+                   inside_mask: torch.Tensor, nets: SideNets | None = None,
+                   num_cls: int = 0):
+    """(total, {name: loss}) of the recipe, as the JAX compute_losses: the
+    L1 on the appearance-transformed centre crop when ``nets`` has the
+    appearance network; curv inside the depth_normal gate."""
     losses = {}
     gt = cam.image
-    losses["l1"] = L.l1_loss(out["render"], gt)
+    if nets is not None and nets.app is not None:
+        transformed, (top, left, h, w) = APP.appearance_transform(
+            nets.app, nets.emb, out["render"], cam.idx)
+        losses["l1"] = L.l1_loss(transformed,
+                                 gt[:, top:top + h, left:left + w])
+    else:
+        losses["l1"] = L.l1_loss(out["render"], gt)
     losses["ssim"] = 1.0 - L.ssim(out["render"], gt)
+    act = state.active
     if weights.get("l1_scale", 0) > 0:
         # amin splits the gradient among tied axes, as jnp.min does
         min_scale = torch.amin(state.scaling, -1)
-        m = (state.active & inside_mask).to(torch.float32)
+        m = (act & inside_mask).to(torch.float32)
         losses["l1_scale"] = (torch.sum(min_scale * m)
                               / torch.clamp_min(m.sum(), 1.0))
+    if weights.get("entropy", 0) > 0:
+        losses["entropy"] = L.entropy_loss(state.opacity[:, 0],
+                                           act & inside_mask)
+    if weights.get("mono_depth", 0) > 0:
+        m = (out["depth"] > 0) & cam.has_depth
+        losses["mono_depth"] = L.scale_and_shift_invariant_depth_loss(
+            out["depth"], cam.depth, m.to(torch.float32))
     gt_normal = cam.normal.permute(1, 2, 0)                    # (H,W,3)
     if weights.get("mono_normal", 0) > 0 and gates.mono_normal:
         losses["mono_normal"] = L.monosdf_normal_loss(out["normal"],
@@ -99,6 +113,10 @@ def compute_losses(out: dict, cam: CameraArrays, state: GM.GaussianState,
                               cfg.optim.exp_t)
         losses["depth_normal"] = L.masked_monosdf_normal_loss(
             out["est_normal"], gt_normal, out["mask"], w_conf)
+        if weights.get("curv", 0) > 0 and gates.curv:
+            curv = L.normal2curv(out["est_normal"],
+                                 out["mask"][..., None].to(torch.float32))
+            losses["curv"] = torch.abs(curv).mean()
     if weights.get("consistent_normal", 0) > 0 and gates.consistent_normal:
         losses["consistent_normal"] = L.monosdf_normal_loss(
             out["est_normal"], out["normal"])
@@ -108,6 +126,9 @@ def compute_losses(out: dict, cam: CameraArrays, state: GM.GaussianState,
     if weights.get("depth_var", 0) > 0 and gates.close_depth:
         losses["depth_var"] = L.edge_aware_distortion_map(
             gt, out["depth_var"]).mean()
+    if weights.get("semantic", 0) > 0:
+        losses["semantic"] = L.semantic_cross_entropy(
+            out["render_sem"], cam.mask, num_cls)
     total = torch.zeros((), device=gt.device)
     for name, w in weights.items():
         if name in losses:
@@ -117,30 +138,46 @@ def compute_losses(out: dict, cam: CameraArrays, state: GM.GaussianState,
 
 
 def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
-                    scene_extent: float, trans, scale):
+                    scene_extent: float, trans, scale, num_cls: int = 0):
     """The step for one camera:
-    step(state, cam, bg, lr_xyz, sh_degree, gates) -> (state, losses, aux).
-    The state passed in is not modified."""
+    step(state, cam, bg, lr_xyz, sh_degree, gates, nets=None)
+    -> (state, losses, aux). The state passed in is not modified; the side
+    networks ``nets`` are stepped in place."""
     o = cfg.optim
     ndc_scale = (0.5 * rcfg.width, 0.5 * rcfg.height)
 
     def step(state: GM.GaussianState, cam: CameraArrays, bg: torch.Tensor,
-             lr_xyz: float, sh_degree: int, gates: Gates):
+             lr_xyz: float, sh_degree: int, gates: Gates,
+             nets: SideNets | None = None):
         inside_mask, _ = M.get_inside_normalized(state.params.xyz, trans,
                                                  scale)
         params = state.params.map(lambda p: p.detach().requires_grad_(True))
         dummy = torch.zeros((state.capacity, 2), device=state.active.device,
                             requires_grad=True)
         st = state.replace(params=params)
-        out = render(st, cam, rcfg, bg, sh_degree, scene_extent=scene_extent,
-                     densify_dummy=dummy)
-        with record_function("train.losses"):
-            total, losses = compute_losses(out, cam, st, weights, gates, cfg,
-                                           inside_mask)
         leaves = list(params.as_dict().values()) + [dummy]
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        n_gauss = len(leaves)
+        if nets is not None:
+            leaves += nets.leaves()
+        # the appearance network's convolutions, backward included, in
+        # full float32 (cuDNN would take TF32)
+        with (torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+              if nets is not None and nets.app is not None
+              else contextlib.nullcontext()):
+            out = render(st, cam, rcfg, bg, sh_degree,
+                         scene_extent=scene_extent, densify_dummy=dummy,
+                         classifier=nets.cls if nets is not None else None)
+            with record_function("train.losses"):
+                total, losses = compute_losses(out, cam, st, weights, gates,
+                                               cfg, inside_mask, nets,
+                                               num_cls)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
+        if nets is not None:
+            with record_function("train.side_nets"):
+                nets.step(grads[n_gauss:])
+        grads = grads[:n_gauss]
         g_params = GM.GaussianParams(*grads[:-1])
         with record_function("train.adam"), torch.no_grad():
             g_params = GM.mask_grads(g_params, state.active)
@@ -159,11 +196,6 @@ def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
         return new_state, {k: v.detach() for k, v in losses.items()}, aux
 
     return step
-
-
-# the JAX package's side-network state, saved as None in checkpoints
-NET_FIELDS = ("app_embeddings", "app_params", "app_opt", "cls_params",
-              "cls_opt")
 
 
 def _auto_capacity(n_init: int) -> int:
@@ -197,6 +229,10 @@ class Trainer:
         self.extent = info.radius
         self.trans = np.asarray(info.trans, np.float32)
         self.scale = np.asarray(info.scale, np.float32)
+        # semantic feature channels only when the recipe trains them
+        self.ch_sem = int(cfg.model.ch_sem_feat) if w.get("semantic", 0) > 0 \
+            else 0
+        self.num_cls = int(cfg.model.num_cls)
 
         pts = info.points.astype(np.float32)
         cols = info.colors.astype(np.float32)
@@ -209,14 +245,19 @@ class Trainer:
                 len(pts), limit, replace=False)
             pts, cols = pts[sel], cols[sel]
         self.state = GM.create_from_pcd(pts, cols, cap, cfg.model.sh_degree,
-                                        0, device=self.device)
+                                        self.ch_sem, device=self.device)
         cam0 = info.train_cameras[0]
         self.rcfg = RenderConfig(
-            width=cam0.width, height=cam0.height,
+            width=cam0.width, height=cam0.height, ch_sem=self.ch_sem,
             depth_mode=cfg.model.depth_type,
             mask_depth_thr=float(cfg.optim.mask_depth_thr))
         self.step_fn = make_train_step(cfg, self.rcfg, w, self.extent,
-                                       self.trans, self.scale)
+                                       self.trans, self.scale, self.num_cls)
+        # the side networks, drawn from the trainer's own generator
+        self.nets = SideNets(
+            cfg, len(info.train_cameras) + len(info.test_cameras),
+            self.ch_sem, self.num_cls,
+            torch.Generator().manual_seed(int(cfg.seed)), self.device)
         self.iteration = 0
         self.viewpoint_stack: list[int] = []
         self.bg = np.array([1, 1, 1] if cfg.model.white_background
@@ -230,6 +271,7 @@ class Trainer:
         # and after
         self.host_log: list[dict] = []
         os.makedirs(cfg.logdir, exist_ok=True)
+        self._tb = make_writer(cfg.logdir)
         # the run metadata downstream tools reload
         with open(os.path.join(cfg.logdir, "cameras.json"), "w") as f:
             json.dump([camera_to_json(i, c) for i, c in enumerate(
@@ -326,7 +368,7 @@ class Trainer:
             np.float32) if self.cfg.optim.random_background else self.bg)
         self.state, losses, aux = self.step_fn(
             self.state, cam, torch.as_tensor(bg, device=self.device),
-            self._lr_xyz(), self._sh_degree(), self._gates())
+            self._lr_xyz(), self._sh_degree(), self._gates(), self.nets)
         self._post_step_actions()
         return losses, aux
 
@@ -337,16 +379,9 @@ class Trainer:
         max_iters = int(max_iters or self.cfg.optim.iterations)
         final_it = int(self.cfg.optim.iterations)
         t = self.cfg.train
+        self._t0 = time.time()
         pending = []
         while self.iteration < max_iters:
-            dl = self._box_cameras()
-            if (dl is not None and getattr(dl.sample_cams, "random", True)
-                    and "densify" in self.host_actions(self.iteration + 1)):
-                self._flush(pending, max_iters)
-                raise NotImplementedError(
-                    f"iteration {self.iteration + 1} would densify with "
-                    "random box cameras (densify_large.sample_cams.random): "
-                    "they come with a later slice of the port")
             losses, _ = self.train_step()
             pending.append((self.iteration, losses,
                             self.state.active.sum()))
@@ -381,8 +416,21 @@ class Trainer:
             self.history.append(rec)
         pending.clear()
         rec = self.history[-1]
+        self._log_scalars({**rec, "time": time.time() - self._t0})
         print(f"[{rec['iter']}/{max_iters}] loss={rec['total']:.4f} "
               f"n_active={rec['n_active']}", flush=True)
+
+    def _log_scalars(self, rec: dict) -> None:
+        """``train/<name>`` of each float of a history record."""
+        if self._tb is not None:
+            for k, v in rec.items():
+                if isinstance(v, float):
+                    self._tb.scalar(f"train/{k}", v, rec["iter"])
+
+    def finalize(self) -> None:
+        """Flush and close the metric writers."""
+        if self._tb is not None:
+            self._tb.finish()
 
     # -- host actions -------------------------------------------------------
 
@@ -431,13 +479,16 @@ class Trainer:
         self._log_action("densify", n_before, dropped=dropped,
                          capacity=self.state.capacity)
 
-    def _stats_sweep(self, cams: list[CameraArrays]):
-        """Per-Gaussian (count, importance) summed over the views."""
+    def _stats_sweep(self, cams: list[CameraArrays],
+                     rcfg: RenderConfig | None = None):
+        """Per-Gaussian (count, importance) summed over the views, rendered
+        at ``rcfg`` (default: the training views')."""
+        rcfg = self.rcfg if rcfg is None else rcfg
         count = torch.zeros(self.state.capacity, device=self.device)
         imp = torch.zeros_like(count)
         with record_function("train.stats_sweep"):
             for cam in cams:
-                c, i = render_stats(self.state, cam, self.rcfg)
+                c, i = render_stats(self.state, cam, rcfg)
                 count += c
                 imp += i
         return count, imp
@@ -447,17 +498,27 @@ class Trainer:
         return [c.arrays(self.device, pixels=False) for c in
                 list(self.scene.train_cameras) + list(self.scene.test_cameras)]
 
-    def get_visi_mask_acc(self, n: int) -> torch.Tensor:
-        """The active Gaussians inside the box that n training views drawn
-        from the trainer's generator see: hit counts of the stats sweep."""
+    def get_visi_mask_acc(self, n: int, up: bool,
+                          around: bool) -> torch.Tensor:
+        """The active Gaussians inside the box that n views see (hit counts
+        of the stats sweep). With ``sample_cams.random`` the views are
+        cameras on the box (``sample_box_cameras``, ``tpu.visi_resolution``
+        pixels square, default 512, seeded by the iteration: the trainer's
+        generator draws nothing); else training views drawn from the
+        trainer's generator."""
         if getattr(self.cfg.optim.densify_large.sample_cams, "random", True):
-            raise NotImplementedError(
-                "the random box cameras (densify_large.sample_cams.random) "
-                "come with a later slice of the port")
-        cams = self.scene.train_cameras
-        views = [cams[self.rng.randint(0, len(cams) - 1)].arrays(
-            self.device, pixels=False) for _ in range(n)]
-        count, _ = self._stats_sweep(views)
+            size = int(getattr(self.cfg.tpu, "visi_resolution", 512))
+            views = sample_box_cameras(
+                n, self.trans, self.scale, up=up, around=around,
+                sample_mode="random", size=size, seed=self.iteration,
+                device=self.device)
+            rcfg = self.rcfg._replace(width=size, height=size, ch_sem=0)
+        else:
+            cams = self.scene.train_cameras
+            views = [cams[self.rng.randint(0, len(cams) - 1)].arrays(
+                self.device, pixels=False) for _ in range(n)]
+            rcfg = self.rcfg
+        count, _ = self._stats_sweep(views, rcfg)
         inside, _ = M.get_inside_normalized(self.state.params.xyz, self.trans,
                                             self.scale)
         return (count > 0) & inside
@@ -468,7 +529,9 @@ class Trainer:
         dl = self._box_cameras()
         if dl is None:
             return None
-        visi = self.get_visi_mask_acc(int(dl.sample_cams.num))
+        sc = dl.sample_cams
+        visi = self.get_visi_mask_acc(int(sc.num), bool(sc.up),
+                                      bool(sc.around))
         large = torch.amax(self.state.scaling, dim=-1) > (
             float(dl.percent_dense) * self.extent)
         return visi & large
@@ -504,48 +567,100 @@ class Trainer:
     # -- outputs ------------------------------------------------------------
 
     def run_test(self) -> dict:
-        """PSNR/L1 over the train and test splits, each capped at
-        ``tpu.eval_max_cams`` views (0 = all), and the panels of the first
-        train view under ``<logdir>/vis``."""
+        """PSNR/L1 (and mIoU with the semantic head) over the train and
+        test splits, each capped at ``tpu.eval_max_cams`` views (0 = all),
+        the panels of the first train view under ``<logdir>/vis``, and the
+        writer's scalars, panels (the first view of each split) and opacity
+        histogram, under the JAX package's tags."""
         cap = int(getattr(self.cfg.tpu, "eval_max_cams", 0) or 0)
         res = {"train": self.evaluate(max_cams=cap)}
-        if self.scene.test_cameras:
-            res["test"] = self.evaluate(self.scene.test_cameras, max_cams=cap)
-        cam = self.scene.train_cameras[0].arrays(self.device)
-        with torch.no_grad():
-            out = render(self.state, cam, self.rcfg,
-                         torch.as_tensor(self.bg, device=self.device),
-                         self._sh_degree(), scene_extent=self.extent)
-        host = {k: out[k].cpu().numpy() for k in
-                ("render", "depth", "alpha", "normal", "est_normal")}
-        VZ.save_panels(os.path.join(self.cfg.logdir, "vis"),
-                       f"iter_{self.iteration:06d}", host,
-                       cam.image.cpu().numpy())
+        test_cams = self.scene.test_cameras
+        if test_cams:
+            res["test"] = self.evaluate(test_cams, max_cams=cap)
+        num_cls = self.num_cls if self.ch_sem else 0
+        splits = {"train": self.scene.train_cameras[0]}
+        if test_cams and self._tb is not None:
+            splits["test"] = test_cams[0]
+        for mode, view in splits.items():
+            cam = view.arrays(self.device)
+            with torch.no_grad():
+                out = render(self.state, cam, self.rcfg,
+                             torch.as_tensor(self.bg, device=self.device),
+                             self._sh_degree(), scene_extent=self.extent,
+                             classifier=self.nets.cls)
+            host = {k: out[k].cpu().numpy() for k in PANEL_KEYS if k in out}
+            if mode == "train":
+                VZ.save_panels(os.path.join(self.cfg.logdir, "vis"),
+                               f"iter_{self.iteration:06d}", host,
+                               cam.image.cpu().numpy(), num_cls=num_cls)
+            if self._tb is not None:
+                panels = VZ.panel_images(
+                    host, gt_image=cam.image.cpu().numpy(),
+                    gt_normal=(cam.normal.cpu().numpy()
+                               if bool(cam.has_normal) else None),
+                    exp_t=float(self.cfg.optim.exp_t), num_cls=num_cls,
+                    gt_mask=(cam.mask.cpu().numpy() if bool(cam.has_mask)
+                             else None))
+                for suffix, arr in panels.items():
+                    tag = f"vis/{mode}" + (f"_{suffix}" if suffix else "")
+                    self._tb.image(tag, arr, self.iteration)
         print(f"[ITER {self.iteration}] " + "  ".join(
             f"{k}: psnr={v['psnr']:.2f} l1={v['l1']:.4f}"
+            + (f" miou={v['miou']:.3f}" if "miou" in v else "")
             for k, v in res.items()), flush=True)
+        if self._tb is not None:
+            for split, v in res.items():
+                for name in ("psnr", "l1", "miou"):
+                    if name in v:
+                        self._tb.scalar(f"eval/{split}_{name}", v[name],
+                                        self.iteration)
+            self._tb.scalar("scene/total_points",
+                            float(self.state.num_active), self.iteration)
+            act = self.state.active
+            self._tb.histogram("scene/opacity_histogram",
+                               self.state.opacity[act, 0].cpu().numpy(),
+                               self.iteration)
         self.test_history.append({"iter": self.iteration, **res})
         return res
 
     @torch.no_grad()
     def evaluate(self, cameras=None, max_cams: int = 0) -> dict:
-        """Mean PSNR and L1 of the clipped renders over a camera list."""
+        """Mean PSNR and L1 of the clipped renders over a camera list, and
+        with the semantic head the mIoU: a confusion matrix of
+        argmax(logits) against clip(mask, 0, num_cls - 1) summed over the
+        cameras that have a mask, its IoU averaged over the classes
+        present."""
         cams = cameras if cameras is not None else self.scene.train_cameras
         if max_cams:
             cams = cams[:max_cams]
         bg = torch.as_tensor(self.bg, device=self.device)
+        with_cls = self.nets.cls is not None
+        n = self.num_cls
+        conf = torch.zeros(n * n, dtype=torch.int64, device=self.device)
         psnr, l1 = [], []
         for cam in cams:
             arr = cam.arrays(self.device)
-            img = torch.clamp(render(self.state, arr, self.rcfg, bg,
-                                     self._sh_degree(),
-                                     scene_extent=self.extent)["render"],
-                              0.0, 1.0)
+            out = render(self.state, arr, self.rcfg, bg, self._sh_degree(),
+                         scene_extent=self.extent, classifier=self.nets.cls)
+            img = torch.clamp(out["render"], 0.0, 1.0)
             mse = torch.mean((img - arr.image) ** 2)
             psnr.append(-10.0 * torch.log10(mse + 1e-12))
             l1.append(L.l1_loss(img, arr.image))
+            if with_cls and bool(arr.has_mask):
+                pred = torch.argmax(out["render_sem"], dim=0)
+                gt = torch.clamp(arr.mask.to(torch.int64), 0, n - 1)
+                conf += torch.bincount((gt * n + pred).ravel(),
+                                       minlength=n * n)
         psnr, l1 = torch.stack(psnr).tolist(), torch.stack(l1).tolist()
-        return {"psnr": float(np.mean(psnr)), "l1": float(np.mean(l1))}
+        res = {"psnr": float(np.mean(psnr)), "l1": float(np.mean(l1))}
+        if with_cls:
+            conf = conf.cpu().numpy().reshape(n, n)
+            if conf.sum() > 0:
+                inter = np.diag(conf).astype(np.float64)
+                union = conf.sum(0) + conf.sum(1) - np.diag(conf)
+                present = union > 0
+                res["miou"] = float((inter[present] / union[present]).mean())
+        return res
 
     def save(self) -> str:
         """``<logdir>/point_cloud/iteration_<it>/``: the PLY of the active
@@ -563,6 +678,11 @@ class Trainer:
                                inside.cpu().numpy())
         if bool(getattr(self.cfg.train, "save_splat", False)):
             ply_io.save_splat(self.state, os.path.join(out, "pcd.splat"))
+        side = self.nets.save_model()
+        if side:
+            # the JAX package's model.pkl: plain dicts and tuples of numpy
+            with open(os.path.join(out, "model.pkl"), "wb") as f:
+                pickle.dump(side, f)
         return path
 
     def save_importance(self) -> str:
@@ -575,18 +695,127 @@ class Trainer:
         return path
 
     def save_checkpoint(self) -> str:
-        """``<logdir>/chkpnt<it>.npz``, readable by either package (the side
-        networks, which the port does not have, are stored as None)."""
+        """``<logdir>/chkpnt<it>.npz``: the Gaussian state, and the side
+        networks with their Adam states (None where absent) as plain numpy
+        in the flax layout. Either package reads a checkpoint without side
+        networks; the JAX package does not read the port's side networks."""
         path = os.path.join(self.cfg.logdir, f"chkpnt{self.iteration}.npz")
         ply_io.save_checkpoint(path, self.state, self.iteration,
-                               extra={"net": dict.fromkeys(NET_FIELDS)})
+                               extra={"net": self.nets.state_dict()})
         return path
 
     def restore_checkpoint(self, path: str) -> None:
-        """Resume from a checkpoint of either package."""
+        """Resume from a checkpoint of either package, side networks
+        included."""
         state, it, extra = ply_io.load_checkpoint(path, self.device)
-        if any(v is not None for v in (extra.get("net") or {}).values()):
-            raise NotImplementedError(
-                "the checkpoint holds side networks (appearance, semantic "
-                "classifier): they come with slice E of the port")
+        net = extra.get("net") or {}
+        if any(v is not None for v in net.values()):
+            self.nets.load_state_dict(net)
         self.state, self.iteration = state, it
+
+
+# the render outputs the panels read
+PANEL_KEYS = ("render", "depth", "alpha", "normal", "est_normal",
+              "render_sem", "distortion", "depth_var")
+
+
+class _TB:
+    """TensorBoard through ``torch.utils.tensorboard`` under
+    ``<logdir>/tb``."""
+
+    def __init__(self, logdir: str):
+        from torch.utils.tensorboard import SummaryWriter
+        self._w = SummaryWriter(os.path.join(logdir, "tb"))
+
+    def scalar(self, tag, value, step):
+        self._w.add_scalar(tag, value, step)
+
+    def histogram(self, tag, values, step):
+        self._w.add_histogram(tag, np.asarray(values), step)
+
+    def image(self, tag, arr_hwc, step):
+        self._w.add_image(tag, np.asarray(arr_hwc), step, dataformats="HWC")
+
+    def finish(self):
+        self._w.close()
+
+
+class _Wandb:
+    """wandb with the run named after the logdir and resumed through
+    ``<logdir>/wandb_id.txt``, as the JAX package's writer."""
+
+    def __init__(self, logdir: str):
+        import wandb
+        self._wandb = wandb
+        id_file = os.path.join(logdir, "wandb_id.txt")
+        if os.path.exists(id_file):
+            with open(id_file) as f:
+                run_id = f.read().strip()
+            resume = "must"
+        else:
+            run_id = wandb.util.generate_id()
+            with open(id_file, "w") as f:
+                f.write(run_id)
+            resume = "allow"
+        parts = os.path.normpath(logdir).split(os.sep)
+        wandb.init(project=os.environ.get("WANDB_PROJECT", "vcr_gaus_tpu"),
+                   group=parts[-2] if len(parts) > 1 else None,
+                   name=parts[-1], id=run_id, resume=resume, dir=logdir)
+
+    def scalar(self, tag, value, step):
+        self._wandb.log({tag: value}, step=step)
+
+    def histogram(self, tag, values, step):
+        self._wandb.log({tag: self._wandb.Histogram(np.asarray(values))},
+                        step=step)
+
+    def image(self, tag, arr_hwc, step):
+        self._wandb.log({tag: self._wandb.Image(np.asarray(arr_hwc))},
+                        step=step)
+
+    def finish(self):
+        self._wandb.finish()
+
+
+class _Multi:
+    """Several writers as one."""
+
+    def __init__(self, writers: list):
+        self.writers = writers
+
+    def scalar(self, tag, value, step):
+        for w in self.writers:
+            w.scalar(tag, value, step)
+
+    def histogram(self, tag, values, step):
+        for w in self.writers:
+            w.histogram(tag, values, step)
+
+    def image(self, tag, arr_hwc, step):
+        for w in self.writers:
+            w.image(tag, arr_hwc, step)
+
+    def finish(self):
+        for w in self.writers:
+            w.finish()
+
+
+def make_writer(logdir: str):
+    """The metric writers the environment asks for: wandb with
+    ``VCR_WANDB=1``, TensorBoard with ``VCR_TB=1``; each is skipped with a
+    printed line when it cannot start (its package absent). None when
+    there is none."""
+    writers = []
+    if os.environ.get("VCR_WANDB", "0") == "1":
+        try:
+            writers.append(_Wandb(logdir))
+        except Exception as e:   # a writer is no part of the training path
+            print(f"[wandb] disabled: {e}", flush=True)
+    if os.environ.get("VCR_TB", "0") == "1":
+        try:
+            writers.append(_TB(logdir))
+        except ImportError as e:
+            print(f"[tensorboard] disabled: {e}", flush=True)
+    if not writers:
+        return None
+    return writers[0] if len(writers) == 1 else _Multi(writers)

@@ -2,9 +2,9 @@
 numpy only: the reference's render / depth / normal / D-normal / cos-weight /
 semantic panels, as {suffix: (H, W, 3) u8} images (``panel_images``) and as
 one PNG strip per view under ``logdir/vis`` (``save_panels``, which
-``Trainer.run_test`` calls). ``panel_images`` is the TensorBoard writer's
-input, which a later slice ports. The inputs are numpy arrays (the trainer
-moves its render outputs to the host)."""
+``Trainer.run_test`` calls). ``panel_images`` is the metric writers' image
+input. The inputs are numpy arrays (the trainer moves its render outputs to
+the host)."""
 
 from __future__ import annotations
 
@@ -100,10 +100,10 @@ def panel_images(render_out: dict, gt_image=None, gt_normal=None,
     return out
 
 
-def save_panels(out_dir: str, tag: str, render_out: dict,
-                gt_image=None) -> str:
-    """Write a horizontal strip [gt | render | depth | normal | est_normal]
-    for one view (the semantic column waits for the semantic slice)."""
+def save_panels(out_dir: str, tag: str, render_out: dict, gt_image=None,
+                num_cls: int = 0) -> str:
+    """Write a horizontal strip [gt | render | depth | normal | est_normal
+    (| semantic)] for one view."""
     from PIL import Image
     os.makedirs(out_dir, exist_ok=True)
     cols = []
@@ -114,6 +114,9 @@ def save_panels(out_dir: str, tag: str, render_out: dict,
     cols.append(colorize_depth(render_out["depth"], alpha > 0.5))
     cols.append(colorize_normal(render_out["normal"]))
     cols.append(colorize_normal(render_out["est_normal"]))
+    if num_cls and "render_sem" in render_out:
+        labels = np.argmax(np.asarray(render_out["render_sem"]), axis=0)
+        cols.append(semantic_palette(labels, num_cls))
     strip = np.concatenate(cols, axis=1)
     path = os.path.join(out_dir, f"{tag}.png")
     Image.fromarray(strip).save(path)
