@@ -304,6 +304,13 @@ def test_eval_geometry_cli_matches_jax(tmp_path):
                               str(tmp_path / "port" / "ours.ply"),
                               "--device", "cpu"] + args)
     assert np.isfinite(got["overall"])
-    with pytest.raises(NotImplementedError, match="slice D2"):
-        eval_geometry.main(["tnt", "--ply_path", "a.ply", "--gt_path",
-                            "b.ply", "--device", "cpu"])
+    # the tnt subcommand scores the mesh against its copy and writes
+    # metrics.txt beside it (held to the JAX CLI in
+    # tests/test_torch_tnt_eval.py)
+    tnt = eval_geometry.main([
+        "tnt", "--ply_path", str(tmp_path / "port" / "ours.ply"),
+        "--gt_path", str(tmp_path / "jax" / "ours.ply"), "--threshold",
+        "0.05", "--down_sample", "0.02", "--device", "cpu"])
+    assert list(tnt) == ["Acc", "Comp", "Prec", "Recal", "F-score"]
+    assert 0.9 < tnt["F-score"] <= 1
+    assert os.path.exists(tmp_path / "port" / "metrics.txt")

@@ -7,6 +7,8 @@ port is installed:
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 """
 
+import os
+
 import pytest
 import torch
 
@@ -416,3 +418,70 @@ def leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in leaves(t)]
     return [tree]
+
+
+def test_tnt_geometry_on_card_matches_host(cuda):
+    """The TNT evaluation's point work on the card against the CPU and
+    scipy: the voxel downsample's voxels and order, the nearest-neighbour
+    index, ICP, the polygon crop and the F1."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from vcr_gaus_tpu_torch.evaluation import geometry as GE
+    from vcr_gaus_tpu_torch.evaluation import tnt_official as TO
+
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(60_000, 3))
+    gt = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    pred = (gt[:30_000] + rng.normal(scale=0.004, size=(30_000, 3))
+            + [0.01, 0.0, -0.01]).astype(np.float32)
+    for pts, voxel in ((gt, 0.01), (pred.astype(np.float64), 0.03)):
+        np.testing.assert_allclose(GE.voxel_downsample(pts, voxel, cuda),
+                                   GE.voxel_downsample(pts, voxel, "cpu"),
+                                   rtol=1e-12, atol=0)
+    dist, idx = GE.nearest_neighbours(pred, gt, device=cuda)
+    want_d, want_i = cKDTree(gt).query(pred)
+    np.testing.assert_allclose(dist, want_d, rtol=1e-12, atol=0)
+    d2 = cKDTree(gt).query(pred, k=2)[0]
+    unique = d2[:, 1] > d2[:, 0]
+    np.testing.assert_array_equal(idx[unique], want_i[unique])
+    np.testing.assert_allclose(
+        GE.icp_refine(pred[::3], gt[::4], max_corr=0.05, device=cuda),
+        GE.icp_refine(pred[::3], gt[::4], max_corr=0.05, device="cpu"),
+        rtol=0, atol=1e-9)
+    crop = {"orthogonal_axis": "Z", "axis_min": -0.5, "axis_max": 0.7,
+            "bounding_polygon": [[-1, -1, 0], [0.8, -0.7, 0], [0.5, 0.9, 0],
+                                 [-0.6, 0.4, 0]]}
+    np.testing.assert_array_equal(TO.crop_polygon_volume(gt, crop, cuda),
+                                  TO.crop_polygon_volume(gt, crop, "cpu"))
+    faces = np.zeros((0, 3), np.int64)
+    on_card = GE.tnt_f1(pred, faces, gt, 0.03, 0.01, run_icp=True,
+                        device=cuda)
+    on_cpu = GE.tnt_f1(pred, faces, gt, 0.03, 0.01, run_icp=True,
+                       device="cpu")
+    for k in ("Prec", "Recal", "F-score"):
+        assert on_card[k] == on_cpu[k], k
+    assert on_card["F-score"] > 0.9
+
+
+def test_render_flythrough_launches_the_kernel_per_frame(cuda, tmp_path):
+    import numpy as np
+
+    from vcr_gaus_tpu_torch.data.cameras import Camera
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.render.renderer import RenderConfig
+    from vcr_gaus_tpu_torch.utils.render_paths import render_flythrough
+
+    state, _, _ = shell_state(cuda)
+    cams = []
+    for i in range(6):
+        ang = 2 * np.pi * i / 6
+        c = np.array([0.3 * np.cos(ang), 0.3 * np.sin(ang), 0.0])
+        cams.append(Camera(colmap_id=i, idx=i, image_name=f"v{i}",
+                           R=np.eye(3), T=-c, fovx=0.9, fovy=0.7, width=64,
+                           height=48))
+    R.reset_launch_counts()
+    out = render_flythrough(state, cams, RenderConfig(width=64, height=48),
+                            str(tmp_path / "fly.mp4"), n_frames=5)
+    assert dict(R.LAUNCHES) == {"rasterize_fwd": 5}
+    assert os.path.exists(out)

@@ -47,3 +47,33 @@ def test_sources_import_no_jax():
         if pat.search(f.read()):
             offenders.append("chip_smoke.py")
     assert offenders == []
+
+
+def test_walk_imports_the_runners_without_side_effects(tmp_path):
+    """The walk above reaches the runners, crop_mesh and render_paths, and
+    importing every module of the port prints nothing, writes nothing and
+    reads no command line (here a bogus one, from an empty directory)."""
+    code = (
+        "import contextlib, importlib, io, os, pkgutil, sys\n"
+        "import vcr_gaus_tpu_torch as P\n"
+        "sys.argv = ['x', '--bogus']\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    P.__path__, P.__name__ + '.')]\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out), "
+        "contextlib.redirect_stderr(out):\n"
+        "    for n in names:\n"
+        "        importlib.import_module(n)\n"
+        "print(sorted(names))\n"
+        "print(repr(out.getvalue()), os.listdir('.'))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    names, side = res.stdout.splitlines()
+    for mod in ("tools.run_tnt", "tools.run_dtu", "tools.run_mipnerf360",
+                "tools.full_eval", "tools.crop_mesh", "tools.stages",
+                "utils.render_paths", "evaluation.tnt_official"):
+        assert f"'vcr_gaus_tpu_torch.{mod}'" in names, mod
+    assert side == "'' []"

@@ -1,6 +1,13 @@
 """Geometry metric CLI, the port's counterpart of
 ``scripts/eval_geometry.py`` (same flags, plus ``--device``).
 
+TNT F1 (the GT's PCA-box crop, optional ICP, precision/recall/F1 at the
+threshold); writes ``metrics.txt`` beside the mesh, one ``key: value`` a
+line:
+  python -m vcr_gaus_tpu_torch.eval_geometry tnt --ply_path out/Barn/ours.ply \
+      --gt_path data/tnt/Barn/Barn.ply --threshold 0.01 [--icp] \
+      [--device cuda|cpu]
+
 DTU Chamfer:
   python -m vcr_gaus_tpu_torch.eval_geometry dtu --ply_path out/scan24/ours.ply \
       --scan 24 --dataset_dir data/dtu_eval [--instance_dir data/dtu/scan24] \
@@ -9,8 +16,7 @@ DTU Chamfer:
 ``dataset_dir`` holds ``Points/stl/stl<scan:03d>_total.ply`` and, where
 available, ``ObsMask/ObsMask<scan>_10.mat`` and ``ObsMask/Plane<scan>.mat``;
 ``instance_dir`` (``cameras.npz`` and ``mask/*.png``) culls the mesh first.
-Writes ``results.json`` beside the mesh. The ``tnt`` subcommand comes with
-slice D2 of the port.
+Writes ``results.json`` beside the mesh.
 """
 
 from __future__ import annotations
@@ -21,10 +27,22 @@ import os
 import sys
 
 
-def cmd_tnt(args):
-    raise NotImplementedError(
-        "the TNT evaluation comes with slice D2 of the port "
-        "(evaluation/tnt_official.py and the TNT part of geometry.py)")
+def cmd_tnt(args) -> dict:
+    from .evaluation.geometry import tnt_f1
+    from .meshing.extract import load_mesh_ply
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    verts, faces = load_mesh_ply(args.ply_path)
+    gt_verts, _ = load_mesh_ply(args.gt_path)
+    m = tnt_f1(verts, faces, gt_verts, threshold=args.threshold,
+               down_sample=args.down_sample, run_icp=args.icp, device=device)
+    out = os.path.join(os.path.dirname(args.ply_path), "metrics.txt")
+    with open(out, "w") as f:
+        for k, v in m.items():
+            f.write(f"{k}: {v}\n")
+    print(json.dumps(m))
+    return m
 
 
 def cmd_dtu(args) -> dict:
