@@ -32,6 +32,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the backward kernel's time, bound and plain time, and the
              kernel held against its plain version on one full-width
              step, with the forward kernel's time and bound on that view;
+             then the camera batch (train_k2): the two-view step's time
+             and launches (2 of each kernel) on the trained state, the
+             camera-DP step over one NCCL rank equal exactly to the plain
+             two-view step from the same state and cameras (the backward
+             kernel's outputs replayed), the CLI with
+             --tpu.camera_batch=2 --train.debug_from=3 (its launches and
+             debug notice), run_scannetpp --dry over two scenes and
+             parallel.dp.scene_dispatch training two small scenes in
+             threads over cuda:0;
   5. host_loop  the DTU recipe's host loop at full width: the same kind of
              scene, tpu.capacity 2^21, configs/dtu/base.yaml with its own
              prune schedule compressed (densify after 20, 30 and 40, each
@@ -1119,6 +1128,9 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         fwd_ops, fwd_flop_s, fwd_byte_s = fwd_bound(
             feats, binn, composited, rows, pairs, power_pass, live, w, h,
             ch_sem, mode)
+        del captured, args, fwd_args, feats, binn, cam, img, g_img, batches
+        k2 = camera_batch_checks(device, trainer, state, scene, root, lr,
+                                 timed_steps=timed_steps)
 
     emit(phase="train_step", gaussians=state.num_active, width=width,
          height=height, scale_mult=scale_mult, weights=DTU_FULL_WEIGHTS,
@@ -1142,7 +1154,230 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by="operations" if flop_s >= byte_s else "bytes",
-                max_abs_err=worst_error(groups))
+                max_abs_err=worst_error(groups), launches_k2=k2["launches"])
+
+
+def same(a, b) -> bool:
+    """Exact equality of tensors, or of tuples, lists and dicts of them and
+    of plain values."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and bool(torch.equal(a, b)))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    return a == b
+
+
+def step_result(out) -> list:
+    """A train step's (state, losses, aux) as a flat list, for ``same``."""
+    from vcr_gaus_tpu_torch.parallel import dp
+    state, losses, aux = out
+    return [dp.leaves(state), state.adam.step, losses, aux]
+
+
+def camera_batch_checks(device, trainer, state, scene, root, lr,
+                        timed_steps=10, cli_iters=6, debug_from=3,
+                        eval_cams=2) -> dict:
+    """Phase train's camera batch (``tpu.camera_batch`` 2) on the trained
+    state at full width: the two-view step's time and launches; the
+    camera-DP step at world size 1 (one NCCL rank) against the plain
+    two-view step from the same state and cameras, exactly, with the
+    backward kernel's output of the plain step replayed into the DP step
+    (its float atomics vary the last bits from one launch to the next;
+    ``repeat_bitwise_equal`` says whether they did here); the train CLI
+    with ``--tpu.camera_batch=2 --train.debug_from=N``, its launches
+    counted from 0 (this slice's main path) and its debug notice; the
+    ScanNet++ runner's dry run over two scenes and scene_dispatch
+    (parallel) over [cuda:0] training two small scenes."""
+    import contextlib
+    import io
+
+    import torch
+
+    from vcr_gaus_tpu_torch.config import Config
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.parallel import dp
+    from vcr_gaus_tpu_torch.tools import run_scannetpp
+    from vcr_gaus_tpu_torch.train import trainer as T
+    from vcr_gaus_tpu_torch.train.__main__ import main as train_main
+
+    views = trainer.scene.train_cameras
+    n_views = len(views)
+    gates = T.Gates(*(True,) * len(T.Gates._fields))
+    bg = torch.zeros(3, device=device)
+    args = (trainer.cfg, trainer.rcfg, DTU_FULL_WEIGHTS, trainer.extent,
+            trainer.trans, trainer.scale)
+    step = T.make_train_step(*args)
+
+    def pair(i):
+        """Views 2i and 2i + 1, uploaded as Trainer.train_step does."""
+        return [views[(2 * i + j) % n_views].arrays(device) for j in (0, 1)]
+
+    for i in range(2):
+        state, _, _ = step(state, pair(i), bg, lr, 3, gates)
+    torch.cuda.synchronize()
+    R.reset_launch_counts()
+    state, _, _ = step(state, pair(2), bg, lr, 3, gates)
+    torch.cuda.synchronize()
+    per_step = dict(R.LAUNCHES)
+    if per_step != {"rasterize_fwd": 2, "rasterize_bwd": 2}:
+        raise AssertionError(f"two-view step launches {per_step}")
+    step_ms, step_losses = [], []
+    for i in range(timed_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses, _ = step(state, pair(3 + i), bg, lr, 3, gates)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        step_losses.append({k: float(v) for k, v in losses.items()})
+    if not all(math.isfinite(v) for ls in step_losses for v in ls.values()):
+        raise AssertionError(f"non-finite two-view losses: {step_losses}")
+
+    # the plain two-view step, recording the backward kernel's outputs;
+    # again without the recording, to see whether the kernel repeats
+    cams = pair(0)
+    real_bwd = R.rasterize_backward
+    recorded = []
+
+    def record(*a):
+        out = real_bwd(*a)
+        recorded.append((a, out.clone()))
+        return out
+
+    R.rasterize_backward = record
+    try:
+        plain = step_result(step(state, cams, bg, lr, 3, gates))
+    finally:
+        R.rasterize_backward = real_bwd
+    again = step_result(step(state, cams, bg, lr, 3, gates))
+    repeat_equal = same(plain, again)
+    repeat_diff = max(float((x - y).abs().max()) for x, y in zip(
+        plain[0], again[0]) if x.dtype == torch.float32 and x.numel())
+
+    # the camera-DP step over one NCCL rank, the plain step's backward
+    # outputs replayed for inputs equal to the plain step's
+    t0 = time.perf_counter()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device.type == "cuda" else device)
+    dp.init_process_group(0, 1, "file://" + os.path.join(root, "nccl_store"),
+                          dev)
+    try:
+        dstep = T.make_train_step(*args, distributed=True)
+        replay = iter(recorded)
+
+        def replayed(*a):
+            want, out = next(replay)
+            if not same(list(a), list(want)):
+                raise AssertionError("the DP step's backward inputs differ "
+                                     "from the plain step's")
+            return out.clone()
+
+        R.rasterize_backward = replayed
+        try:
+            dp_out = step_result(dstep(state, cams, bg, lr, 3, gates))
+        finally:
+            R.rasterize_backward = real_bwd
+        if not same(dp_out, plain):
+            raise AssertionError("the camera-DP step at world size 1 differs "
+                                 "from the plain two-view step")
+    finally:
+        torch.distributed.destroy_process_group()
+    dp_s = time.perf_counter() - t0
+    del recorded, plain, again, dp_out
+
+    # the train CLI with a camera batch of 2 and the debug hooks: this
+    # slice's main path, its launches counted from 0
+    logdir = os.path.join(root, "run_k2")
+    R.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            tr = train_main([
+                "--config", os.path.join(REPO, "configs", "dtu", "base.yaml"),
+                "--device", str(device), f"--logdir={logdir}",
+                f"--model.source_path={scene}",
+                f"--optim.iterations={cli_iters}",
+                "--optim.prune.iterations=[]", f"--tpu.capacity={1 << 20}",
+                "--tpu.camera_batch=2", f"--train.debug_from={debug_from}",
+                f"--tpu.eval_max_cams={eval_cams}"])
+    finally:
+        torch.autograd.set_detect_anomaly(False)
+    cli_s = time.perf_counter() - t0
+    cli_launches = dict(R.LAUNCHES)
+    text = buf.getvalue()
+    n_eval = eval_views(tr)
+    # two forward and two backward launches a step; the last iteration's
+    # test sweep (its views and the panel) and the CLI's evaluation
+    want = {"rasterize_fwd": 2 * cli_iters + 2 * n_eval + 1,
+            "rasterize_bwd": 2 * cli_iters}
+    if cli_launches != want:
+        raise AssertionError(f"CLI launches {cli_launches}, expected {want}")
+    notice = [ln for ln in text.splitlines() if ln.startswith("[debug]")]
+    if notice != [f"[debug] NaN tracing + per-step finite checks enabled "
+                  f"from iteration {debug_from}"]:
+        raise AssertionError(f"debug notice: {notice}")
+    if not tr._debug_on or len(tr.history) != cli_iters or not all(
+            math.isfinite(v) for h in tr.history for v in h.values()
+            if isinstance(v, float)):
+        raise AssertionError(f"CLI history: {tr.history}")
+    del tr
+
+    # scene-DP: the runner's stage list, and two small scenes trained in
+    # threads through scene_dispatch over the one card
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_scannetpp.main(["--data_root", os.path.join(root, "spp"),
+                            "--out", os.path.join(root, "spp_out"),
+                            "--scenes", "sceneA", "sceneB", "--dry",
+                            "--device", "cuda"])
+    stages = [ln.split(" + ", 1) for ln in buf.getvalue().splitlines()
+              if "] + " in ln]
+    modules = [(tag, cmd.split()[2]) for tag, cmd in stages]
+    if modules != [(f"[{s}]", f"vcr_gaus_tpu_torch.{m}")
+                   for s in ("sceneA", "sceneB")
+                   for m in ("train", "depth2mesh", "render_eval")]:
+        raise AssertionError(f"run_scannetpp --dry stages: {modules}")
+    small = [write_train_scene(os.path.join(root, f"sdp{i}"), 20_000, 160,
+                               120, 4, seed=i + 1) for i in range(2)]
+
+    def make(i, src):
+        def fn(d):
+            cfg = Config(os.path.join(REPO, "configs", "dtu", "base.yaml"),
+                         overrides=[f"--logdir={root}/sdp_run{i}",
+                                    f"--model.source_path={src}",
+                                    "--optim.iterations=3",
+                                    "--optim.prune.iterations=[]",
+                                    f"--tpu.capacity={1 << 16}"])
+            t = T.Trainer(cfg, device=d)
+            hist = t.train(log_every=1)
+            return str(t.state.params.xyz.device), [h["total"] for h in hist]
+        return fn
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        sdp = dp.scene_dispatch([make(i, s) for i, s in enumerate(small)],
+                                [dev], parallel=True)
+    if [d for d, _ in sdp] != [str(dev)] * 2 or not all(
+            len(h) == 3 and all(map(math.isfinite, h)) for _, h in sdp):
+        raise AssertionError(f"scene_dispatch: {sdp}")
+    scene_dp_s = time.perf_counter() - t0
+
+    emit(phase="train_k2", camera_batch=2, gaussians=state.num_active,
+         step_ms_k2=statistics.median(step_ms), step_ms_k2_all=step_ms,
+         launches_per_step_k2=per_step, step_losses_k2=step_losses,
+         repeat_bitwise_equal=repeat_equal,
+         repeat_max_abs_state_diff=repeat_diff,
+         dp_world1_exact=True, dp_world1_s=dp_s,
+         cli_iterations=cli_iters, cli_debug_from=debug_from,
+         cli_launches=cli_launches, cli_s=cli_s, cli_debug_notice=notice[0],
+         scannetpp_dry_stages=len(stages),
+         scene_dispatch=[{"device": d, "losses": h} for d, h in sdp],
+         scene_dp_s=scene_dp_s)
+    return dict(launches=cli_launches, step_ms=statistics.median(step_ms))
 
 
 def schedule_launches(trainer, first: int, last: int,
@@ -2746,13 +2981,15 @@ def main() -> int:
     # protocol shape; ``launches_train_tnt`` counts each kernel's launches
     # on the TNT recipe's run (phase train_tnt), ``launches_eval_tnt`` K1's
     # on the TNT scoring path (phase eval_tnt: both meshes' fused views
-    # and the fly-through's frames)
+    # and the fly-through's frames), ``launches_k2`` K1's and K2's on the
+    # train CLI's run with a camera batch of 2 (phase train_k2)
     tnt_launches = tnt["launches"]
     emit(kernels=[{
         "name": "rasterize_fwd", "route": "cuda",
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_fwd.cu",
         "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:532",
         "launches": tr["launches"]["rasterize_fwd"],
+        "launches_k2": tr["launches_k2"]["rasterize_fwd"],
         "launches_mesh": ms["launches"],
         "launches_train_tnt": tnt_launches["rasterize_fwd"],
         "launches_eval_tnt": ev["launches"],
@@ -2765,6 +3002,7 @@ def main() -> int:
         "source": "vcr_gaus_tpu_torch/csrc/rasterize_bwd.cu",
         "replaces": "vcr_gaus_tpu/ops/rasterize_tpu.py:800",
         "launches": tr["launches"]["rasterize_bwd"],
+        "launches_k2": tr["launches_k2"]["rasterize_bwd"],
         "launches_train_tnt": tnt_launches["rasterize_bwd"],
         "max_abs_err": max(worst_bwd, tr["max_abs_err"], tnt["max_abs_err"]),
         "ms": tr["kernel_ms"], "plain_ms": tr["plain_ms"],

@@ -54,13 +54,13 @@ def test_train_cli_seed_and_wandb(scene_dir, tmp_path, monkeypatch, extra):
     monkeypatch.setenv("VCR_WANDB", "unset")
     monkeypatch.delenv("VCR_WANDB")
     picked = []
-    pick = T.Trainer._pick_camera_index
+    pick = T.Trainer._pick_camera_batch
 
     def spy(self):
-        picked.append(pick(self))
-        return picked[-1]
+        picked.extend(pick(self))      # one camera a step at camera_batch 1
+        return picked[-1:]
 
-    monkeypatch.setattr(T.Trainer, "_pick_camera_index", spy)
+    monkeypatch.setattr(T.Trainer, "_pick_camera_batch", spy)
     tr = main(["--config", CONFIG, f"--logdir={tmp_path}",
                f"--model.source_path={scene_dir}",
                "--model.normal_folder=normals",

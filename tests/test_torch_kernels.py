@@ -485,3 +485,144 @@ def test_render_flythrough_launches_the_kernel_per_frame(cuda, tmp_path):
                             str(tmp_path / "fly.mp4"), n_frames=5)
     assert dict(R.LAUNCHES) == {"rasterize_fwd": 5}
     assert os.path.exists(out)
+
+
+# --- across cards (skip with fewer than two) ---------------------------------
+
+DP_ITERS = 6
+
+
+def dp_overrides(scene, logdir, camera_batch):
+    """The DTU recipe over DP_ITERS steps: densify after 3 and 6 (its box
+    mask over 3 training views), the LightGaussian prune at 5, a save and a
+    checkpoint at 6."""
+    import json as _json
+    ov = {"logdir": logdir, "model.source_path": scene,
+          "optim.iterations": DP_ITERS, "optim.densify_from_iter": 1,
+          "optim.densification_interval": 3, "optim.prune.iterations": [5],
+          "optim.densify_large.sample_cams.num": 3,
+          "train.test_iterations": [], "train.save_iterations": [DP_ITERS],
+          "train.checkpoint_iterations": [DP_ITERS],
+          "tpu.capacity": 1 << 16, "tpu.camera_batch": camera_batch}
+    return [f"--{k}={_json.dumps(v) if isinstance(v, list) else v}"
+            for k, v in ov.items()]
+
+
+def dp_train(scene, logdir, camera_batch, device):
+    """The Trainer over DP_ITERS steps on ``device``: (state arrays, the
+    losses per step, the host log, the device the state lives on)."""
+    from vcr_gaus_tpu_torch.config import Config
+    from vcr_gaus_tpu_torch.models.convert import state_to_arrays
+    from vcr_gaus_tpu_torch.train.trainer import Trainer
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = Config(os.path.join(repo, "configs", "dtu", "base.yaml"),
+                 overrides=dp_overrides(scene, logdir, camera_batch))
+    tr = Trainer(cfg, device=device)
+    hist = tr.train(log_every=1)
+    return (state_to_arrays(tr.state), hist, tr.host_log,
+            str(tr.state.params.xyz.device))
+
+
+def _dp_rank(rank, world, store, scene, out, device_type):
+    """One rank of the camera-DP run: cuda:<rank> under NCCL (gloo on the
+    CPU); its results pickled under ``out``."""
+    import pickle
+
+    from vcr_gaus_tpu_torch.parallel import dp
+
+    dev = (torch.device("cuda", rank) if device_type == "cuda"
+           else torch.device("cpu"))
+    dp.init_process_group(rank, world, f"file://{store}", dev)
+    try:
+        res = dp_train(scene, os.path.join(out, f"log{rank}"), 2 * world,
+                       dev)
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_camera_dp(tmp_path, world, device_type):
+    """Every rank's (state, history, host log, device) after the camera-DP
+    run at camera_batch 2 x world, and the scene it trained."""
+    import pickle
+
+    from chip_smoke import write_train_scene
+
+    if device_type == "cuda":
+        from vcr_gaus_tpu_torch.ops import cuda_build
+        cuda_build.build_all()        # once, before the ranks start
+    scene = write_train_scene(str(tmp_path), 20_000, 160, 120, 6)
+    out = tmp_path / "ranks"
+    out.mkdir()
+    torch.multiprocessing.spawn(
+        _dp_rank, args=(world, str(tmp_path / "store"), scene, str(out),
+                        device_type), nprocs=world)
+    ranks = []
+    for r in range(world):
+        with open(out / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks, scene
+
+
+def test_camera_dp_across_cards(cuda, tmp_path):
+    """Camera-DP over every card (NCCL, one rank a card, 2 views a rank a
+    step): the ranks' states identical bit for bit after two densifies and
+    a prune (rank 0's state broadcast after each), each rank's state on its
+    own card, rank 0 alone writing, the first step's losses equal to one
+    process's at the same camera batch."""
+    import numpy as np
+
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA cards")
+    ranks, scene = run_camera_dp(tmp_path, world, "cuda")
+    for r, (_, hist, log, dev) in enumerate(ranks):
+        assert dev == f"cuda:{r}"
+        assert len(hist) == DP_ITERS
+        assert [(e["iter"], e["action"]) for e in log] == [
+            (3, "densify"), (5, "prune"), (6, "densify")]
+    state0 = ranks[0][0]
+    for state, hist, _, _ in ranks[1:]:
+        for a, b in zip(leaves(state), leaves(state0)):
+            np.testing.assert_array_equal(a, b)
+        assert hist == ranks[0][1]
+    prune = ranks[0][2][1]
+    assert prune["n_after"] < prune["n_before"]
+    assert (tmp_path / "ranks" / "log0" / f"chkpnt{DP_ITERS}.npz").exists()
+    assert not any((tmp_path / "ranks" / f"log{r}").exists()
+                   for r in range(1, world))
+    _, single, _, _ = dp_train(scene, str(tmp_path / "single"), 2 * world,
+                               torch.device("cuda", 0))
+    for k, v in single[0].items():
+        if k not in ("iter", "n_active"):
+            assert ranks[0][1][0][k] == pytest.approx(v, rel=1e-5), k
+
+
+def test_scene_dispatch_across_cards(cuda, tmp_path):
+    """One small scene a card, trained in threads: each closure gets its
+    own card and its state lives there."""
+    from chip_smoke import write_train_scene
+    from vcr_gaus_tpu_torch.parallel import dp
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    scenes = [write_train_scene(str(tmp_path / f"s{i}"), 5_000, 96, 72, 4,
+                                seed=i) for i in range(n)]
+
+    def make(i):
+        def fn(dev):
+            out = dp_train(scenes[i], str(tmp_path / f"log{i}"), 1, dev)
+            return str(dev), out[3], [h["total"] for h in out[1]]
+        return fn
+
+    res = dp.scene_dispatch([make(i) for i in range(n)],
+                            [torch.device("cuda", i) for i in range(n)],
+                            parallel=True)
+    assert sorted(d for d, _, _ in res) == [f"cuda:{i}" for i in range(n)]
+    for handed, lives, losses in res:
+        assert handed == lives
+        assert len(losses) == DP_ITERS
+        assert all(v == v and abs(v) < float("inf") for v in losses)

@@ -74,6 +74,7 @@ def test_walk_imports_the_runners_without_side_effects(tmp_path):
     names, side = res.stdout.splitlines()
     for mod in ("tools.run_tnt", "tools.run_dtu", "tools.run_mipnerf360",
                 "tools.full_eval", "tools.crop_mesh", "tools.stages",
-                "utils.render_paths", "evaluation.tnt_official"):
+                "utils.render_paths", "evaluation.tnt_official",
+                "tools.run_scannetpp", "parallel.dp"):
         assert f"'vcr_gaus_tpu_torch.{mod}'" in names, mod
     assert side == "'' []"

@@ -37,13 +37,23 @@ def jax_script(name):
 
 
 def commands(text):
-    return [ln[2:].split() for ln in text.splitlines() if ln.startswith("+ ")]
+    """The stage commands a runner printed: lines ``+ cmd``, or
+    ``[scene] + cmd`` (run_scannetpp), the scene kept as the first word."""
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith("+ "):
+            out.append(ln[2:].split())
+        elif ln.startswith("[") and "] + " in ln:
+            tag, cmd = ln.split(" + ", 1)
+            out.append([tag, *cmd.split()])
+    return out
 
 
 def as_port(cmd, device):
     """A JAX runner's stage command as the port's runner spawns it."""
+    tag = [cmd.pop(0)] if cmd[0].startswith("[") else []
     py, script, *rest = cmd
-    return [py, "-m", f"vcr_gaus_tpu_torch.{PORT_CLI[script]}", *rest,
+    return [*tag, py, "-m", f"vcr_gaus_tpu_torch.{PORT_CLI[script]}", *rest,
             f"--device={device}"]
 
 
@@ -58,6 +68,10 @@ RUNNERS = {
                        "garden", "room", "--iterations", "7"],
     "full_eval": ["--mipnerf360", "m360", "--tanksandtemples", "tnt",
                   "--deepblending", "db", "--output_path", "out"],
+    "run_scannetpp": ["--data_root", "d", "--out", "o", "--scenes",
+                      "0a5c013435", "8b5caf3398", "--iterations", "7",
+                      "--voxel_size", "0.02", "--parallel", "2",
+                      "--tpu.capacity=1024"],
 }
 
 
@@ -111,3 +125,45 @@ def test_run_tnt_toy_scene_on_cpu(tmp_path, capfd):
     assert run_tnt.main(base + ["--out", str(tmp_path / "bad"),
                                 "--nonexistent.key=1"]) == {}
     assert "TRAIN FAILED: Toy" in capfd.readouterr().out
+
+
+def test_run_scannetpp_in_process_on_cpu(tmp_path, capfd):
+    """Two 48x32 scenes trained for 6 iterations inside this process
+    through scene_dispatch over two CPU slots, concurrently, then the mesh
+    and eval stages of each as subprocesses, the check_finish gates, and
+    the mean PSNR; a scene whose training fails is reported and skipped."""
+    import json
+
+    from vcr_gaus_tpu_torch.tools import run_scannetpp
+
+    data = tmp_path / "scannetpp"
+    for s in ("sceneA", "sceneB"):
+        write_colmap_scene(str(data / s), n_cams=4, n_pts=300, width=48,
+                           height=32, with_priors=True)
+    out = tmp_path / "out"
+    res = run_scannetpp.main([
+        "--data_root", str(data), "--out", str(out), "--in_process", "2",
+        "--iterations", "6", "--voxel_size", "0.08", "--device", "cpu",
+        "--tpu.capacity=1024", "--model.depth_type=traditional",
+        "--model.llffhold=3", "--optim.densify_from_iter=1000",
+        "--train.test_iterations=[]", "--train.save_iterations=[6]"])
+    text = capfd.readouterr().out
+    assert "in-process scene-DP over 2 devices: ['cpu', 'cpu']" in text
+    assert text.count("trained in-process on device cpu") == 2
+    assert res["ok"] == {"sceneA": True, "sceneB": True}
+    for s in ("sceneA", "sceneB"):
+        assert (out / s / "point_cloud" / "iteration_6").is_dir()
+        assert (out / s / "ours.ply").exists()
+        assert f"[{s}] + " in text and "vcr_gaus_tpu_torch.train " not in \
+            text
+    assert set(res["per_scene"]) == {"sceneA", "sceneB"}
+    assert np.isfinite(res["mean_psnr"])
+    printed = json.loads(text[text.rindex('{\n  "per_scene"'):])
+    assert printed["mean_psnr"] == pytest.approx(res["mean_psnr"])
+    # a training failure (a key the strict merge rejects) skips the scene
+    bad = run_scannetpp.main([
+        "--data_root", str(data), "--out", str(tmp_path / "bad"),
+        "--scenes", "sceneA", "--in_process", "1", "--device", "cpu",
+        "--nonexistent.key=1"])
+    assert bad["ok"] == {"sceneA": False}
+    assert "TRAIN FAILED in-process" in capfd.readouterr().out

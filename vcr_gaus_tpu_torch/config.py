@@ -8,8 +8,11 @@ Keeps the reference's config surface (VCR-GauS configs/config.py):
   * save/reload round-trip so downstream stages (mesh extraction, eval) can
     re-open ``logdir/config.yaml``.
 
-It reads the same ``configs/*.yaml`` recipes as the JAX package; their
-``tpu:`` block is read and ignored by the port.
+It reads the same ``configs/*.yaml`` recipes as the JAX package. Of their
+``tpu:`` block the port's trainer acts on ``camera_batch`` (views averaged a
+step, split over the ranks of a process group), ``capacity``,
+``eval_max_cams`` and ``visi_resolution``; the other keys size the JAX
+package's static shapes and programs on the TPU and have no counterpart.
 """
 
 from __future__ import annotations

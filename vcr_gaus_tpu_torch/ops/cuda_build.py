@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -82,8 +83,17 @@ def build_all(names=None) -> dict[str, str]:
     return reports
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed; one build at a
+    time when several threads (``parallel.dp.scene_dispatch``) ask."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+@functools.cache
+def _load(name: str) -> ctypes.CDLL:
     build_all([name])
     return ctypes.CDLL(str(library_path(name)))

@@ -18,13 +18,15 @@ def cli(module: str, argv: list[str]) -> list[str]:
     return [sys.executable, "-m", f"vcr_gaus_tpu_torch.{module}", *argv]
 
 
-def run(cmd: list[str], dry: bool) -> int:
-    """Print the command and, unless ``dry``, run it; its exit code (0 when
-    dry)."""
-    print("+", " ".join(cmd), flush=True)
+def run(cmd: list[str], dry: bool, label: str = "",
+        env: dict | None = None) -> int:
+    """Print the command (after ``label``, such as ``[scene] ``) and,
+    unless ``dry``, run it in ``env`` (default: this process's); its exit
+    code (0 when dry)."""
+    print(f"{label}+", " ".join(cmd), flush=True)
     if dry:
         return 0
-    return subprocess.run(cmd, cwd=REPO).returncode
+    return subprocess.run(cmd, cwd=REPO, env=env).returncode
 
 
 def check(cmd: list[str], dry: bool) -> None:

@@ -18,12 +18,24 @@ semantic head.
 checkpoint written by either package, at the iteration after it.
 ``--seed`` is parsed and dropped, as the root ``train.py`` does: the run's
 seed stays the YAML's ``seed``. ``--wandb`` sets ``VCR_WANDB=1``.
+``--tpu.camera_batch=k`` averages k views a step.
+
+Launched by ``torchrun`` (``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` set),
+each process joins the process group (NCCL on ``cuda:<LOCAL_RANK>``, gloo
+with ``--device cpu``) and trains its share of each camera batch, which
+must be a multiple of the world size; rank 0 alone writes:
+
+  torchrun --nproc_per_node=4 -m vcr_gaus_tpu_torch.train \
+      --config=configs/dtu/base.yaml --model.source_path=... \
+      --logdir=... --tpu.camera_batch=4
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 
 def main(argv: list[str] | None = None):
@@ -40,27 +52,44 @@ def main(argv: list[str] | None = None):
         os.environ["VCR_WANDB"] = "1"
 
     from ..config import Config
+    from ..parallel import dp
     from ..utils.device import resolve_device
     from .trainer import Trainer
 
     device = resolve_device(args.device)
-    cfg = Config(args.config, overrides=overrides)
-    if not cfg.logdir:
-        raise SystemExit("set --logdir")
-    os.makedirs(cfg.logdir, exist_ok=True)
-    cfg.save(os.path.join(cfg.logdir, "config.yaml"))
-    cfg.print_config()
+    launched = "WORLD_SIZE" in os.environ and "RANK" in os.environ
+    if launched:
+        if device.type == "cuda":
+            device = torch.device("cuda",
+                                  int(os.environ.get("LOCAL_RANK", "0")))
+        dp.init_process_group(int(os.environ["RANK"]),
+                              int(os.environ["WORLD_SIZE"]), "env://",
+                              device)
+    try:
+        cfg = Config(args.config, overrides=overrides)
+        if not cfg.logdir:
+            raise SystemExit("set --logdir")
+        main_rank = dp.world()[0] == 0
+        if main_rank:
+            os.makedirs(cfg.logdir, exist_ok=True)
+            cfg.save(os.path.join(cfg.logdir, "config.yaml"))
+            cfg.print_config()
 
-    trainer = Trainer(cfg, device=device)
-    print(f"scene: {len(trainer.scene.train_cameras)} train cams, "
-          f"{len(trainer.scene.points)} init points, "
-          f"capacity {trainer.state.capacity}", flush=True)
-    trainer.train()
-    trainer.save()
-    metrics = trainer.evaluate(
-        max_cams=int(getattr(cfg.tpu, "eval_max_cams", 0) or 0))
-    print("final:", metrics, flush=True)
-    trainer.finalize()
+        trainer = Trainer(cfg, device=device)
+        trainer._print(f"scene: {len(trainer.scene.train_cameras)} train "
+                       f"cams, {len(trainer.scene.points)} init points, "
+                       f"capacity {trainer.state.capacity}")
+        trainer.train()
+        if main_rank:
+            trainer.save()
+            metrics = trainer.evaluate(
+                max_cams=int(getattr(cfg.tpu, "eval_max_cams", 0) or 0))
+            print("final:", metrics, flush=True)
+            trainer.finalize()
+        dp.barrier()
+    finally:
+        if launched:
+            torch.distributed.destroy_process_group()
     return trainer
 
 

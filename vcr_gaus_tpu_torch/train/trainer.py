@@ -1,26 +1,33 @@
 """Training: the step and the host loop (vcr_gaus_tpu/train/trainer.py).
 
-One step renders a camera (through the semantic classifier when the recipe
-has one), assembles the recipe's losses (the L1 through the appearance
-network when it has one), takes the gradient of the total over the
-parameters, the densify dummy and the side networks, masks the Gaussians'
-gradient to the active slots, runs Adam with the per-group learning rates,
-adds the densification statistics and steps the side networks' Adam.
+One step renders a batch of ``tpu.camera_batch`` cameras, one view at a
+time (each through the semantic classifier when the recipe has one),
+assembles the recipe's losses (the L1 through the appearance network when
+it has one), takes the gradient of the total over the parameters, the
+densify dummy and the side networks, averages the views' gradients and
+losses, masks the Gaussians' gradient to the active slots, runs Adam with
+the per-group learning rates, adds the densification statistics and steps
+the side networks' Adam once. When a process group is initialised
+(``parallel.dp``) the batch is split over the ranks and the averages are
+all-reduced, as the JAX package's camera-DP step does over its mesh.
 ``Trainer`` loads the scene and its priors, initializes the state from its
 point cloud (or a checkpoint) and runs the schedule: steps in the JAX
-package's camera order, then the host actions of each iteration (densify
-with the box-guided split, over training views or random cameras on the
-box; opacity reset, capacity growth, the LightGaussian prune), the test
-sweeps with their panels and mIoU, the metric writers (TensorBoard with
+package's camera order (its single-step path and its camera-DP path draw
+alike), then the host actions of each iteration (densify with the
+box-guided split, over training views or random cameras on the box;
+opacity reset, capacity growth, the LightGaussian prune), the test sweeps
+with their panels and mIoU, the metric writers (TensorBoard with
 ``VCR_TB=1``, wandb with ``VCR_WANDB=1``, each skipped with a printed line
 when its package is absent), the PLY, ``model.pkl`` and checkpoint saves
-and the final importance dump. The stats sweeps behind the box mask and the
-prune run the stats kernel once per view. The learning-rate schedule, the
-SH degree warmup and the loss gates follow the iteration as in the JAX
-package. The JAX package's entry budget, overflow handling, supersteps
-(``tpu.steps_per_call``), binning lookahead and camera cache exist for its
-static shapes on the TPU and have no counterpart here; the camera order
-is that of its single-step path (``tpu.steps_per_call: 1``).
+and the final importance dump; across ranks rank 0 alone writes. The stats
+sweeps behind the box mask and the prune run the stats kernel once per
+view. The learning-rate schedule, the SH degree warmup, the loss gates and
+the debug hooks (``detect_anomaly``, ``train.debug_from``) follow the
+iteration as in the JAX package. The JAX package's entry budget, overflow
+handling, supersteps (``tpu.steps_per_call``), binning lookahead and
+camera cache exist for its static shapes on the TPU and have no
+counterpart here; its viewer bridge (``port``) is not ported yet, and a
+positive ``port`` raises.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..data.scene import camera_to_json, load_scene_info
 from ..models import appearance as APP
 from ..models import gaussians as GM
 from ..models import ply_io
+from ..parallel import dp as DP
 from ..render.renderer import RenderConfig, render, render_stats
 from ..utils import math as M
 from ..utils.device import resolve_device
@@ -138,17 +146,29 @@ def compute_losses(out: dict, cam: CameraArrays, state: GM.GaussianState,
 
 
 def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
-                    scene_extent: float, trans, scale, num_cls: int = 0):
-    """The step for one camera:
-    step(state, cam, bg, lr_xyz, sh_degree, gates, nets=None)
-    -> (state, losses, aux). The state passed in is not modified; the side
-    networks ``nets`` are stepped in place."""
+                    scene_extent: float, trans, scale, num_cls: int = 0,
+                    distributed: bool = False):
+    """The step for a batch of cameras:
+    step(state, cams, bg, lr_xyz, sh_degree, gates, nets=None)
+    -> (state, losses, aux), where ``cams`` is one CameraArrays or a list of
+    k. As the JAX package's step: each view is rendered and differentiated
+    in turn (one view's graph alive at a time), the gradients and losses
+    summed in view order and, when k > 1, multiplied by 1/k; radii by max,
+    visibility by OR, the entry count by max. With ``distributed`` (a
+    process group is initialised) the gradients, the densify dummy's, the
+    side networks' and the losses are then all-reduced as a mean over the
+    ranks, radii, visibility and the entry count as a maximum, before the
+    update that every rank runs alike. The state passed in is not modified;
+    the side networks ``nets`` take one Adam step, in place, on the
+    averaged gradients. One background serves every view of the step."""
     o = cfg.optim
     ndc_scale = (0.5 * rcfg.width, 0.5 * rcfg.height)
 
-    def step(state: GM.GaussianState, cam: CameraArrays, bg: torch.Tensor,
+    def step(state: GM.GaussianState, cams, bg: torch.Tensor,
              lr_xyz: float, sh_degree: int, gates: Gates,
              nets: SideNets | None = None):
+        if isinstance(cams, CameraArrays):
+            cams = [cams]
         inside_mask, _ = M.get_inside_normalized(state.params.xyz, trans,
                                                  scale)
         params = state.params.map(lambda p: p.detach().requires_grad_(True))
@@ -159,21 +179,50 @@ def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
         n_gauss = len(leaves)
         if nets is not None:
             leaves += nets.leaves()
-        # the appearance network's convolutions, backward included, in
-        # full float32 (cuDNN would take TF32)
-        with (torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
-              if nets is not None and nets.app is not None
-              else contextlib.nullcontext()):
-            out = render(st, cam, rcfg, bg, sh_degree,
-                         scene_extent=scene_extent, densify_dummy=dummy,
-                         classifier=nets.cls if nets is not None else None)
-            with record_function("train.losses"):
-                total, losses = compute_losses(out, cam, st, weights, gates,
-                                               cfg, inside_mask, nets,
-                                               num_cls)
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
+        grads = losses = radii = visibility = num_entries = None
+        for cam in cams:
+            # the appearance network's convolutions, backward included, in
+            # full float32 (cuDNN would take TF32)
+            with (torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+                  if nets is not None and nets.app is not None
+                  else contextlib.nullcontext()):
+                out = render(st, cam, rcfg, bg, sh_degree,
+                             scene_extent=scene_extent, densify_dummy=dummy,
+                             classifier=(nets.cls if nets is not None
+                                         else None))
+                with record_function("train.losses"):
+                    total, losses_i = compute_losses(
+                        out, cam, st, weights, gates, cfg, inside_mask,
+                        nets, num_cls)
+                grads_i = torch.autograd.grad(total, leaves,
+                                              allow_unused=True)
+            grads_i = [torch.zeros_like(x) if g is None else g
+                       for x, g in zip(leaves, grads_i)]
+            losses_i = {k: v.detach() for k, v in losses_i.items()}
+            if grads is None:
+                grads, losses = grads_i, losses_i
+                radii = out["radii"]
+                visibility = out["visibility_filter"]
+                num_entries = out["num_entries"]
+            else:
+                grads = [a + b for a, b in zip(grads, grads_i)]
+                losses = {k: v + losses_i[k] for k, v in losses.items()}
+                radii = torch.maximum(radii, out["radii"])
+                visibility = visibility | out["visibility_filter"]
+                num_entries = max(num_entries, out["num_entries"])
+            del out, total, grads_i, losses_i
+        if len(cams) > 1:
+            inv = 1.0 / len(cams)
+            grads = [g * inv for g in grads]
+            losses = {k: v * inv for k, v in losses.items()}
+        if distributed:
+            with record_function("train.all_reduce"):
+                names = list(losses)
+                reduced = DP.reduce_mean(grads + [losses[k] for k in names])
+                grads = reduced[:len(grads)]
+                losses = dict(zip(names, reduced[len(grads):]))
+                radii, visibility, num_entries = DP.reduce_max(
+                    radii, visibility, num_entries)
         if nets is not None:
             with record_function("train.side_nets"):
                 nets.step(grads[n_gauss:])
@@ -191,9 +240,9 @@ def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
             # densify threshold is in those units
             g_dummy = grads[-1] * grads[-1].new_tensor(ndc_scale)
             new_state = GM.add_densification_stats(
-                new_state, g_dummy, out["radii"], out["visibility_filter"])
-        aux = {"num_entries": out["num_entries"]}
-        return new_state, {k: v.detach() for k, v in losses.items()}, aux
+                new_state, g_dummy, radii, visibility)
+        aux = {"num_entries": num_entries}
+        return new_state, losses, aux
 
     return step
 
@@ -211,6 +260,25 @@ class Trainer:
     def __init__(self, cfg, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if int(getattr(cfg, "port", -1) or -1) > 0:
+            raise NotImplementedError(
+                f"port={cfg.port}: the viewer bridge (network_gui) is not "
+                "ported yet; run with port -1")
+        # the JAX package's debug hooks: detect_anomaly for the whole run,
+        # train.debug_from from that iteration on
+        if bool(getattr(cfg, "detect_anomaly", False)):
+            torch.autograd.set_detect_anomaly(True)
+        self._debug_from = int(getattr(cfg.train, "debug_from", -1))
+        self._debug_on = False
+        # camera-DP over the default process group, when one is initialised
+        self.rank, self.world_size = DP.world()
+        self.distributed = DP.initialized()
+        self.is_main = self.rank == 0
+        self.camera_batch = max(int(getattr(cfg.tpu, "camera_batch", 1)), 1)
+        if self.camera_batch % self.world_size:
+            raise ValueError(
+                f"tpu.camera_batch={self.camera_batch} must be a multiple of "
+                f"the mesh size {self.world_size} (the world size)")
         w = recipe_weights(cfg)
         self.weights = w
         load_mask = "semantic" in w or bool(getattr(cfg.model, "load_mask",
@@ -240,7 +308,7 @@ class Trainer:
         cap = int(cfg.tpu.capacity) or _auto_capacity(len(pts))
         limit = min(x for x in (max_init, cap) if x)
         if len(pts) > limit:
-            print(f"subsampling init cloud {len(pts)} -> {limit}")
+            self._print(f"subsampling init cloud {len(pts)} -> {limit}")
             sel = np.random.default_rng(cfg.seed).choice(
                 len(pts), limit, replace=False)
             pts, cols = pts[sel], cols[sel]
@@ -252,7 +320,8 @@ class Trainer:
             depth_mode=cfg.model.depth_type,
             mask_depth_thr=float(cfg.optim.mask_depth_thr))
         self.step_fn = make_train_step(cfg, self.rcfg, w, self.extent,
-                                       self.trans, self.scale, self.num_cls)
+                                       self.trans, self.scale, self.num_cls,
+                                       distributed=self.distributed)
         # the side networks, drawn from the trainer's own generator
         self.nets = SideNets(
             cfg, len(info.train_cameras) + len(info.test_cameras),
@@ -263,25 +332,42 @@ class Trainer:
         self.bg = np.array([1, 1, 1] if cfg.model.white_background
                            else [0, 0, 0], np.float32)
         self.rng = random.Random(cfg.seed)
-        self._next_idx: int | None = None   # the one-step camera lookahead
+        # the one-step camera lookahead: the next step's batch of indices
+        self._next_idxs: list[int] | None = None
         self._pending_dropped: int | None = None
         self.history: list[dict] = []
         self.test_history: list[dict] = []
         # one record per host action: iteration, action, population before
         # and after
         self.host_log: list[dict] = []
-        os.makedirs(cfg.logdir, exist_ok=True)
-        self._tb = make_writer(cfg.logdir)
-        # the run metadata downstream tools reload
-        with open(os.path.join(cfg.logdir, "cameras.json"), "w") as f:
-            json.dump([camera_to_json(i, c) for i, c in enumerate(
-                info.train_cameras + info.test_cameras)], f)
-        write_cfg_args(cfg, cfg.logdir)
+        # rank 0 alone writes: the logdir, the metric writers, the run
+        # metadata downstream tools reload
+        self._tb = None
+        if self.is_main:
+            os.makedirs(cfg.logdir, exist_ok=True)
+            self._tb = make_writer(cfg.logdir)
+            with open(os.path.join(cfg.logdir, "cameras.json"), "w") as f:
+                json.dump([camera_to_json(i, c) for i, c in enumerate(
+                    info.train_cameras + info.test_cameras)], f)
+            write_cfg_args(cfg, cfg.logdir)
         start_ckpt = getattr(cfg.train, "start_checkpoint", None)
         if start_ckpt:
             self.restore_checkpoint(start_ckpt)
-            print(f"resumed from {start_ckpt} at iteration {self.iteration}",
-                  flush=True)
+            self._print(f"resumed from {start_ckpt} at iteration "
+                        f"{self.iteration}")
+        DP.barrier()
+
+    def _print(self, msg: str) -> None:
+        """A log line, printed by rank 0 alone."""
+        if self.is_main:
+            print(msg, flush=True)
+
+    def _on_main(self, fn, *args):
+        """``fn(*args)`` on rank 0 while the other ranks wait at a barrier;
+        its result on rank 0, None elsewhere."""
+        out = fn(*args) if self.is_main else None
+        DP.barrier()
+        return out
 
     # -- schedule -----------------------------------------------------------
 
@@ -314,15 +400,38 @@ class Trainer:
         return self.viewpoint_stack.pop(
             self.rng.randint(0, len(self.viewpoint_stack) - 1))
 
-    def _pick_camera_index(self) -> int:
-        """This step's camera. The next one's index is drawn now, before
-        the step and its host actions, as the JAX package's one-slot camera
-        prefetch draws it; the densify's draws from the same generator
-        follow it."""
-        if self._next_idx is None:
-            self._next_idx = self._next_camera_index()
-        idx, self._next_idx = self._next_idx, self._next_camera_index()
-        return idx
+    def _pick_camera_batch(self) -> list[int]:
+        """This step's ``tpu.camera_batch`` cameras. The next step's batch
+        is drawn now, before the step and its host actions, as the JAX
+        package's one-step camera prefetch draws it (the first step draws
+        two batches); the densify's draws from the same generator follow.
+        Every rank draws the same indices from the same seeded generator."""
+        k = self.camera_batch
+        if self._next_idxs is None:
+            self._next_idxs = [self._next_camera_index() for _ in range(k)]
+        idxs = self._next_idxs
+        self._next_idxs = [self._next_camera_index() for _ in range(k)]
+        return idxs
+
+    def _maybe_enable_debug(self) -> None:
+        """From iteration ``train.debug_from`` on (checked before the
+        step, as the JAX package does): anomaly detection, and every step's
+        losses host-checked for finiteness after its host actions."""
+        if self._debug_on or self._debug_from < 0:
+            return
+        if self.iteration >= self._debug_from:
+            self._debug_on = True
+            torch.autograd.set_detect_anomaly(True)
+            self._print(f"[debug] NaN tracing + per-step finite checks "
+                        f"enabled from iteration {self.iteration}")
+
+    def _debug_check(self, losses: dict) -> None:
+        if not self._debug_on:
+            return
+        for k, v in losses.items():
+            if not math.isfinite(float(v)):
+                raise FloatingPointError(
+                    f"non-finite loss '{k}' at iteration {self.iteration}")
 
     def host_actions(self, j: int) -> list[str]:
         """The host actions the schedule runs after iteration j (the JAX
@@ -361,15 +470,22 @@ class Trainer:
     # -- loop ---------------------------------------------------------------
 
     def train_step(self):
+        """One iteration: this rank's share of the step's camera batch
+        (all of it on one process), then the host actions."""
+        self._maybe_enable_debug()
         self.iteration += 1
-        cam = self.scene.train_cameras[self._pick_camera_index()].arrays(
-            self.device)
+        idxs = self._pick_camera_batch()
+        share = len(idxs) // self.world_size
+        mine = idxs[self.rank * share:(self.rank + 1) * share]
+        cams = [self.scene.train_cameras[i].arrays(self.device)
+                for i in mine]
         bg = (np.random.default_rng(self.iteration).random(3).astype(
             np.float32) if self.cfg.optim.random_background else self.bg)
         self.state, losses, aux = self.step_fn(
-            self.state, cam, torch.as_tensor(bg, device=self.device),
+            self.state, cams, torch.as_tensor(bg, device=self.device),
             self._lr_xyz(), self._sh_degree(), self._gates(), self.nets)
         self._post_step_actions()
+        self._debug_check(losses)
         return losses, aux
 
     def train(self, max_iters: int | None = None, log_every: int = 50):
@@ -389,15 +505,16 @@ class Trainer:
             if it % log_every == 0 or it == max_iters:
                 self._flush(pending, max_iters)
             final = it == final_it
+            # rank 0 alone sweeps and writes; the others wait for it
             if final or it in list(t.test_iterations):
                 self._flush(pending, max_iters)
-                self.run_test()
+                self._on_main(self.run_test)
             if final or it in list(t.save_iterations):
-                self.save()
+                self._on_main(self.save)
             if it in list(t.checkpoint_iterations):
-                self.save_checkpoint()
+                self._on_main(self.save_checkpoint)
             if final and list(self.cfg.optim.prune.iterations):
-                self.save_importance()
+                self._on_main(self.save_importance)
         self._flush(pending, max_iters)
         return self.history
 
@@ -417,8 +534,8 @@ class Trainer:
         pending.clear()
         rec = self.history[-1]
         self._log_scalars({**rec, "time": time.time() - self._t0})
-        print(f"[{rec['iter']}/{max_iters}] loss={rec['total']:.4f} "
-              f"n_active={rec['n_active']}", flush=True)
+        self._print(f"[{rec['iter']}/{max_iters}] loss={rec['total']:.4f} "
+                    f"n_active={rec['n_active']}")
 
     def _log_scalars(self, rec: dict) -> None:
         """``train/<name>`` of each float of a history record."""
@@ -435,11 +552,16 @@ class Trainer:
     # -- host actions -------------------------------------------------------
 
     def _post_step_actions(self) -> None:
+        """The host actions of this iteration. Every rank runs them on its
+        identical state; after an action that changes the population, rank
+        0's state is broadcast, so that the float atomics of the stats
+        kernel cannot set the ranks apart."""
         o = self.cfg.optim
         it = self.iteration
         if it < o.densify_until_iter:
             if it > o.densify_from_iter and it % o.densification_interval == 0:
                 self.densify(20 if it > o.opacity_reset_interval else None)
+                DP.replicate(self.state)
             if it % o.opacity_reset_interval == 0 or (
                     self.cfg.model.white_background
                     and it == o.densify_from_iter):
@@ -448,6 +570,7 @@ class Trainer:
                 self._log_action("reset opacity")
         if it in list(o.prune.iterations):
             self.light_gaussian_prune(list(o.prune.iterations).index(it))
+            DP.replicate(self.state)
 
     def _log_action(self, action: str, n_before: int | None = None,
                     **more) -> None:
@@ -557,11 +680,11 @@ class Trainer:
                              + 3)
         new_cap = cap * 2
         if new_cap * bytes_per > self.cfg.model.max_mem * (1 << 30):
-            print(f"[capacity] at max_mem cap ({cap}); densify drops "
-                  f"{dropped} splats", flush=True)
+            self._print(f"[capacity] at max_mem cap ({cap}); densify drops "
+                        f"{dropped} splats")
             return
-        print(f"[capacity] {cap} -> {new_cap} (densify dropped {dropped})",
-              flush=True)
+        self._print(f"[capacity] {cap} -> {new_cap} (densify dropped "
+                    f"{dropped})")
         self.state = GM.expand_capacity(self.state, new_cap)
 
     # -- outputs ------------------------------------------------------------
