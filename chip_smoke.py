@@ -40,7 +40,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              --tpu.camera_batch=2 --train.debug_from=3 (its launches and
              debug notice), run_scannetpp --dry over two scenes and
              parallel.dp.scene_dispatch training two small scenes in
-             threads over cuda:0;
+             threads over cuda:0; then the viewer: the trainer's pump on
+             the trained state serving a SIBR client on an ephemeral
+             loopback port (12 frames of the scene's cameras at 1600x1200
+             and scaling modifier 1.0, one at 0.5, a paused frame and the
+             resuming one), one forward launch a frame, each frame's bytes
+             at most one level from the u8 of the plain version's render
+             of its camera on at most 0.1% of the pixels and the float
+             frame at the forward tolerance, the pump held until the
+             resume, the frame's round trip and the render's time; then
+             the train CLI with --port set and a client that pauses it
+             once (its launches: the steps' and the frames');
   5. host_loop  the DTU recipe's host loop at full width: the same kind of
              scene, tpu.capacity 2^21, configs/dtu/base.yaml with its own
              prune schedule compressed (densify after 20, 30 and 40, each
@@ -124,6 +134,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              cKDTree, the CPU and a cKDTree loop on 200k-point subsamples,
              the forward kernel on the first frame against its plain
              version, its time and bound;
+ 10. prep    the data-preparation tools as ``python -m`` runs them, on
+             the card: a COLMAP scene at DTU's size (49 1600x1200 views
+             around the shell, its f32 z-depth per view, 100k sparse
+             points); tools.make_meta in its three modes (the obb box
+             holds the points, the pose centre and the points box as
+             computed here, a train/test split), tools.extract_priors'
+             normals from depth (equal up to f16 rounding to the tool on
+             the CPU over 6 views; unit normals on the shell) and
+             all-foreground masks, tools.convert_lpips on the placeholder
+             weights split into a vgg and a lin file (its self-test; LPIPS
+             of the result equal to the placeholder's at rel 1e-6 on a
+             1600x1200 pair); the scene then loads with a normal prior on
+             every view;
 then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Imports nothing of JAX or of vcr_gaus_tpu.
 """
@@ -1131,6 +1154,7 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         del captured, args, fwd_args, feats, binn, cam, img, g_img, batches
         k2 = camera_batch_checks(device, trainer, state, scene, root, lr,
                                  timed_steps=timed_steps)
+        viewer = phase_viewer(device, trainer, scene, root)
 
     emit(phase="train_step", gaussians=state.num_active, width=width,
          height=height, scale_mult=scale_mult, weights=DTU_FULL_WEIGHTS,
@@ -1154,7 +1178,8 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
                 bound_by="operations" if flop_s >= byte_s else "bytes",
-                max_abs_err=worst_error(groups), launches_k2=k2["launches"])
+                max_abs_err=worst_error(groups), launches_k2=k2["launches"],
+                viewer=viewer)
 
 
 def same(a, b) -> bool:
@@ -1378,6 +1403,296 @@ def camera_batch_checks(device, trainer, state, scene, root, lr,
          scene_dispatch=[{"device": d, "losses": h} for d, h in sdp],
          scene_dp_s=scene_dp_s)
     return dict(launches=cli_launches, step_ms=statistics.median(step_ms))
+
+
+def viewer_message(cam, width, height, train=True, sm=1.0) -> dict:
+    """The SIBR viewer's message asking for the host camera ``cam`` at
+    ``width`` x ``height``: its view and projection in the viewer's
+    convention (row-major, the view's y and z columns and the projection's
+    y column negated)."""
+    view = cam.world_view_transform.astype(np.float32)
+    view[:, 1:3] *= -1
+    proj = cam.full_proj_transform.astype(np.float32)
+    proj[:, 1] *= -1
+    return {"resolution_x": width, "resolution_y": height, "train": train,
+            "fov_y": cam.fovy, "fov_x": cam.fovx, "z_near": 0.01,
+            "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+            "keep_alive": True, "scaling_modifier": sm,
+            "view_matrix": view.reshape(-1).tolist(),
+            "view_projection_matrix": proj.reshape(-1).tolist()}
+
+
+class ViewerClient:
+    """A SIBR viewer on a thread: connects to ``port`` on the loopback
+    (retrying until the listener is up), then sends each of ``msgs`` and
+    reads its frame (the raw bytes and the verify string) before the next,
+    waiting ``pause_s`` after the frame of a message with ``train`` false.
+    Per message: the frame, the verify string, the host times of sending
+    it and of the verify string's last byte."""
+
+    def __init__(self, port, msgs, pause_s=0.0, connect_s=600.0):
+        import threading
+        self.port, self.msgs, self.pause_s = port, msgs, pause_s
+        self.connect_s = connect_s
+        self.frames, self.verify, self.sent, self.done = [], [], [], []
+        self.error = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    @staticmethod
+    def _recv(s, n) -> bytes:
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = s.recv(min(n - len(buf), 1 << 22))
+            if not chunk:
+                raise ConnectionError("listener closed")
+            buf += chunk
+        return bytes(buf)
+
+    def _run(self):
+        import socket
+        try:
+            deadline = time.perf_counter() + self.connect_s
+            while True:
+                try:
+                    s = socket.create_connection(("127.0.0.1", self.port),
+                                                 timeout=5)
+                    break
+                except OSError:
+                    if time.perf_counter() > deadline:
+                        raise
+                    time.sleep(0.05)
+            with s:
+                s.settimeout(600)
+                for msg in self.msgs:
+                    data = json.dumps(msg).encode()
+                    w, h = msg["resolution_x"], msg["resolution_y"]
+                    self.sent.append(time.perf_counter())
+                    s.sendall(len(data).to_bytes(4, "little") + data)
+                    frame = self._recv(s, w * h * 3)
+                    n = int.from_bytes(self._recv(s, 4), "little")
+                    self.verify.append(self._recv(s, n).decode())
+                    self.done.append(time.perf_counter())
+                    self.frames.append(frame)
+                    if not msg["train"]:
+                        time.sleep(self.pause_s)
+        except BaseException as e:          # noqa: BLE001 (re-raised)
+            self.error = e
+
+    def alive(self) -> bool:
+        return self.thread.is_alive()
+
+    def join(self):
+        self.thread.join(timeout=600)
+        if self.error is not None:
+            raise self.error
+        if self.thread.is_alive():
+            raise AssertionError("the viewer client did not finish")
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_viewer(device, trainer, scene, root, n_frames=12, pause_s=0.3,
+                 cli_iters=12, eval_cams=2, timing_iters=10) -> dict:
+    """Phase viewer on the train phase's trained state: the trainer's pump
+    serving a SIBR client on an ephemeral loopback port (``n_frames``
+    frames of the scene's cameras at the trainer's size and scaling
+    modifier 1.0, one at 0.5, then a paused frame and the resuming one),
+    one forward launch a frame, every frame's bytes against the plain
+    version's render of the same camera converted the same way, the pump
+    held until the resume; then the train CLI with ``port`` set and a
+    client that pauses it once."""
+    import contextlib
+    import io
+
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.render import network_gui as NG
+    from vcr_gaus_tpu_torch.train import trainer as T
+    from vcr_gaus_tpu_torch.train.__main__ import main as train_main
+
+    t_phase = time.perf_counter()
+    cams = trainer.scene.train_cameras
+    w, h = trainer.rcfg.width, trainer.rcfg.height
+    # (camera, modifier) of each message
+    keys = [(i % len(cams), 1.0) for i in range(n_frames)]
+    keys += [(0, 0.5), (1, 1.0), (2, 1.0)]
+    msgs = [viewer_message(cams[c], w, h, sm=sm) for c, sm in keys]
+    msgs[-2]["train"] = False                 # the pause, then the resume
+    gui = NG.NetworkGUI("127.0.0.1", 0, device)
+    trainer._gui = gui
+    torch.cuda.synchronize()
+    R.reset_launch_counts()
+    client = ViewerClient(gui.listener.getsockname()[1], msgs, pause_s)
+    returns = []
+    try:
+        while client.alive():
+            trainer._gui_pump()
+            returns.append(time.perf_counter())
+        client.join()
+    finally:
+        gui.close()
+        trainer._gui, trainer._gui_paused = None, False
+    torch.cuda.synchronize()
+    launches = dict(R.LAUNCHES)
+    if launches != {"rasterize_fwd": len(msgs)}:
+        raise AssertionError(f"viewer launches {launches}, expected one "
+                             f"forward launch for each of {len(msgs)} "
+                             "frames")
+    if client.verify != [trainer.cfg.model.source_path] * len(msgs):
+        raise AssertionError(f"verify strings {client.verify}")
+    # the pump serving the pause returned only after the resume was sent
+    p = len(msgs) - 2
+    early = [t for t in returns if client.done[p] < t < client.sent[p + 1]]
+    held = [t for t in returns if t > client.sent[p + 1]]
+    held_s = client.sent[p + 1] - client.done[p]
+    if early or not held or held_s < pause_s:
+        raise AssertionError(f"the pump returned {len(early)} times while "
+                             "paused")
+    frame_ms = [1e3 * (b - a) for a, b in zip(client.sent, client.done)]
+
+    # every frame against the plain version's render of its camera, both
+    # with the modifier folded into the log-scales: the kernel's float
+    # frame at the forward tolerance and its batches exactly, the bytes at
+    # most one level apart on at most 0.1% of the pixels
+    err, worst_px, plain_ms, checked = 0.0, 0, [], {}
+    n_tx, n_ty = B.tile_grid(w, h)
+    wrapped = R.rasterize_forward
+    for k, key in enumerate(keys):
+        if key not in checked:
+            cam = NG.request_camera(msgs[k], device)
+            calls = []
+
+            def spy(*args, **kw):
+                out = wrapped(*args, **kw)
+                calls.append((args, out))
+                return out
+
+            R.rasterize_forward = spy
+            try:
+                trainer.gui_frame(cam, key[1])
+            finally:
+                R.rasterize_forward = wrapped
+            (feats, binn, cam_vec, _, _, ch_sem, mode), (img, batches) = \
+                calls[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tiles, want_b = R.composite_tiles_torch(
+                feats, binn.sorted_gid, binn.tile_starts, binn.tile_counts,
+                cam_vec, n_tx, ch_sem, mode)
+            plain = R.tiles_to_image(tiles, n_tx, n_ty, w, h)
+            torch.cuda.synchronize()
+            plain_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.testing.assert_close(img, plain, **FWD)
+            if not torch.equal(batches, want_b):
+                raise AssertionError("viewer frame: batches differ")
+            err = max(err, float((img - plain).abs().max()))
+            checked[key] = (plain[:3].clamp(0, 1) * 255).to(
+                torch.uint8).permute(1, 2, 0).cpu().numpy()
+            if k == 0:
+                first = calls[0]
+            del calls, tiles, plain, img
+        got = np.frombuffer(client.frames[k], np.uint8).reshape(h, w, 3)
+        diff = np.abs(got.astype(np.int16) - checked[key]).max(-1)
+        n_px = int((diff > 0).sum())
+        if diff.max() > 1 or n_px > 0.001 * diff.size:
+            raise AssertionError(f"viewer frame {k}: {n_px} pixels differ, "
+                                 f"by up to {int(diff.max())}")
+        worst_px = max(worst_px, n_px)
+    if np.array_equal(checked[(0, 0.5)], checked[(0, 1.0)]):
+        raise AssertionError("the scaling modifier changed nothing")
+
+    # the render alone, synchronized, and the kernel on the first frame
+    cam0 = NG.request_camera(msgs[0], device)
+    render_ms = []
+    for _ in range(timing_iters + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.gui_frame(cam0)
+        torch.cuda.synchronize()
+        render_ms.append(1e3 * (time.perf_counter() - t0))
+    (feats, binn, cam_vec, _, _, ch_sem, mode), (img, batches) = first
+    kernel_ms = cuda_ms(lambda: R.rasterize_forward(
+        feats, binn, cam_vec, w, h, ch_sem, mode), iters=timing_iters)
+    composited, rows = composited_census(binn, batches)
+    pairs, power_pass, live, warp_steps = pair_census(feats, binn, batches,
+                                                      n_tx)
+    ops, flop_s, byte_s = fwd_bound(feats, binn, composited, rows, pairs,
+                                    power_pass, live, w, h, ch_sem, mode)
+    del first, feats, binn, img, batches
+    phase_s = time.perf_counter() - t_phase
+
+    # the train CLI with port set: a client that takes two frames, pauses
+    # the run at the third and resumes it
+    port = free_port()
+    cli_msgs = [viewer_message(cams[i], w, h) for i in range(4)]
+    cli_msgs[2]["train"] = False
+    steps = []
+    step = T.Trainer.train_step
+
+    def timed_step(self):
+        steps.append(time.perf_counter())
+        return step(self)
+
+    cli_client = ViewerClient(port, cli_msgs, pause_s)
+    R.reset_launch_counts()
+    T.Trainer.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr = train_main([
+                "--config", os.path.join(REPO, "configs", "dtu", "base.yaml"),
+                "--device", str(device),
+                f"--logdir={os.path.join(root, 'run_viewer')}",
+                f"--model.source_path={scene}",
+                f"--optim.iterations={cli_iters}",
+                "--optim.prune.iterations=[]", f"--tpu.capacity={1 << 20}",
+                f"--tpu.eval_max_cams={eval_cams}", f"--port={port}",
+                "--ip=127.0.0.1"])
+    finally:
+        T.Trainer.train_step = step
+    cli_s = time.perf_counter() - t0
+    tr._gui.close()              # a frame still owed fails the client now
+    cli_client.join()
+    cli_launches = dict(R.LAUNCHES)
+    n_frames_cli = len(cli_client.frames)
+    want = {"rasterize_fwd": cli_iters + n_frames_cli + 2 * eval_views(tr)
+            + 1, "rasterize_bwd": cli_iters}
+    if n_frames_cli != len(cli_msgs) or cli_launches != want:
+        raise AssertionError(f"CLI with the viewer: {n_frames_cli} frames, "
+                             f"launches {cli_launches}, expected {want}")
+    if len(tr.history) != cli_iters:
+        raise AssertionError(f"CLI with the viewer: {len(tr.history)} steps")
+    paused = [t for t in steps
+              if cli_client.done[2] < t < cli_client.sent[3]]
+    if paused:
+        raise AssertionError(f"{len(paused)} steps ran while paused")
+    del tr
+
+    emit(phase="viewer", gaussians=trainer.state.num_active, width=w,
+         height=h, frames=len(msgs), launches=launches,
+         viewer_frame_ms=statistics.median(frame_ms[n_frames - 10:
+                                                    n_frames]),
+         viewer_frame_ms_all=frame_ms,
+         viewer_render_ms=statistics.median(render_ms[1:]),
+         viewer_render_ms_all=render_ms, kernel_ms=kernel_ms,
+         plain_ms=statistics.median(plain_ms), bound_ops=ops,
+         bound_ms=1e3 * max(flop_s, byte_s), bound_flop_ms=1e3 * flop_s,
+         bound_byte_ms=1e3 * byte_s, composited_entries=composited,
+         pairs=pairs, live_pairs=live, warp_steps_live=warp_steps,
+         max_abs_err=err, worst_frame_pixels_off_by_one=worst_px,
+         pause_held_s=held_s,
+         phase_s=phase_s, cli_iterations=cli_iters,
+         cli_frames=n_frames_cli, cli_launches=cli_launches, cli_s=cli_s)
+    return dict(launches=launches["rasterize_fwd"], max_abs_err=err)
 
 
 def schedule_launches(trainer, first: int, last: int,
@@ -2934,6 +3249,240 @@ def phase_eval_tnt(device, n_gauss=1_000_000, width=TNT_WIDTH,
     return dict(launches=launches.get("rasterize_fwd", 0), max_abs_err=err)
 
 
+def write_prep_scene(root, width, height, n_views, n_points, seed=3):
+    """A COLMAP scene at DTU's size for the data-preparation tools:
+    ``n_views`` views on ``dtu_poses``' grid around bench.py's shell
+    (uniform gray images), each with the shell's f32 z-depth under
+    ``depths/`` (0 where the ray misses it), and ``n_points`` sparse points
+    on the shell. Returns the scene directory."""
+    from scipy.spatial.transform import Rotation
+
+    from vcr_gaus_tpu_torch.utils import colmap as CM
+    from vcr_gaus_tpu_torch.utils import graphics as G
+
+    rng = np.random.default_rng(seed)
+    scene = os.path.join(root, "prep")
+    poses = dtu_poses(n_views)
+    qvecs = [np.roll(Rotation.from_matrix(R).as_quat(), 1) for R, _ in poses]
+    gray = np.full((height, width, 3), 128, np.uint8)
+    write_colmap_views(scene, width, height, n_views, lambda i: gray,
+                       poses=[(q, T) for q, (_, T) in zip(qvecs, poses)])
+    pts, cols = sphere_shell(rng, n_points)
+    CM.write_points3d_binary(pts, cols * 255, os.path.join(
+        scene, "sparse", "0", "points3D.bin"))
+    # camera rays with z = 1 at the pixel centres: t along them is z-depth
+    ys, xs = np.mgrid[0:height, 0:width] + 0.5
+    rays = np.stack([(xs - width / 2) / G.fov2focal(0.9, width),
+                     (ys - height / 2) / G.fov2focal(0.7, height),
+                     np.ones_like(xs)], -1)
+    os.makedirs(os.path.join(scene, "depths"))
+    for i, (R, T) in enumerate(poses):
+        rel = -R.T @ T - MESH_CENTER
+        d = rays @ R                        # R^T d per pixel
+        a = np.einsum("hwc,hwc->hw", d, d)
+        b = d @ rel
+        disc = b * b - a * (rel @ rel - MESH_RADIUS ** 2)
+        hit = disc >= 0
+        depth = np.where(hit, (-b - np.sqrt(np.where(hit, disc, 0))) / a, 0)
+        np.savez(os.path.join(scene, "depths", f"view_{i:03d}.npz"),
+                 depth.astype(np.float32))
+    return scene, pts
+
+
+def f16_ulps(a, b) -> np.ndarray:
+    """Distance of two f16 arrays in units in the last place."""
+    def key(x):
+        i = x.view(np.int16).astype(np.int32)
+        return np.where(i < 0, -(i & 0x7FFF), i)
+    return np.abs(key(a) - key(b))
+
+
+def run_tool(tool, argv) -> float:
+    """``python -m vcr_gaus_tpu_torch.tools.<tool> <argv>``, in this process;
+    its seconds."""
+    import contextlib
+    import io
+    import runpy
+
+    saved = sys.argv
+    sys.argv = [tool] + argv
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            runpy.run_module(f"vcr_gaus_tpu_torch.tools.{tool}",
+                             run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = saved
+    return time.perf_counter() - t0
+
+
+def phase_prep(device, width=1600, height=1200, n_views=49,
+               n_points=100_000, n_cpu_views=6, timing_iters=10) -> dict:
+    """Phase prep: a scene prepared by the data-preparation tools, each
+    run as ``python -m`` runs it on the default device: make_meta in its
+    three modes (the last with a train/test split), extract_priors' normals
+    from depth (held against the tool on the CPU, up to f16 rounding) and
+    all-foreground masks, convert_lpips on the placeholder weights split
+    into a vgg and a lin file (with its self-test; LPIPS of the result
+    equal to the placeholder's on a full-size pair); then the scene loads
+    with a normal prior on every view."""
+    import torch
+    from PIL import Image
+
+    from vcr_gaus_tpu_torch.data.scene import load_scene_info
+    from vcr_gaus_tpu_torch.evaluation import lpips as L
+    from vcr_gaus_tpu_torch.evaluation.geometry import pca_obb
+    from vcr_gaus_tpu_torch.utils import graphics as G
+    from vcr_gaus_tpu_torch.utils.graphics import compute_normals_from_depth
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        scene, pts = write_prep_scene(root, width, height, n_views, n_points)
+        setup_s = time.perf_counter() - t0
+        names = [f"view_{i:03d}" for i in range(n_views)]
+
+        def meta():
+            with open(os.path.join(scene, "meta.json")) as f:
+                return json.load(f)
+
+        meta_s = {}
+        meta_s["obb"] = run_tool("make_meta", ["--source", scene,
+                                               "--mode", "obb"])
+        m = meta()
+        pts = pts.astype(np.float64)            # as points3D.bin holds them
+        R, _ = pca_obb(pts, "cpu")
+        T = np.asarray(m["trans"])
+        if T.shape != (4, 4) or not np.allclose(T[:3, :3], R, atol=1e-6):
+            raise AssertionError(f"obb meta.json: {m}")
+        if not np.all(np.abs(pts @ T[:3, :3].T + T[:3, 3])
+                      <= np.asarray(m["scale"])):
+            raise AssertionError("obb box does not hold the points")
+        meta_s["pose"] = run_tool("make_meta", ["--source", scene,
+                                                "--mode", "pose"])
+        # every optical axis passes through the shell's centre; a camera
+        # paired with itself contributes its own position
+        centres = [-R.T @ T for R, T in dtu_poses(n_views)]
+        want = (n_views * (n_views - 1) * MESH_CENTER
+                + np.sum(centres, 0)) / n_views ** 2
+        m = meta()
+        if not np.allclose(m["trans"], want, atol=1e-6):
+            raise AssertionError(f"pose centre {m['trans']}, want {want}")
+        meta_s["points"] = run_tool("make_meta", [
+            "--source", scene, "--mode", "points", "--split_ratio", "0.9"])
+        m = meta()
+        if (not np.allclose(m["trans"], pts.mean(0), rtol=1e-6, atol=1e-6)
+                or sorted(m["train"] + m["test"]) != names
+                or len(m["test"]) != n_views - int(0.9 * n_views)):
+            raise AssertionError(f"points meta.json: {m}")
+
+        # normals from depth on the default device, then on the CPU over a
+        # copy of the first views
+        normals_s = run_tool("extract_priors", [
+            "normals", "--source", scene, "--backend", "depth"])
+        out = os.path.join(scene, "normals")
+        if sorted(os.listdir(out)) != [n + ".npz" for n in names]:
+            raise AssertionError(f"normals written: {os.listdir(out)}")
+        sub = os.path.join(root, "prep_cpu")
+        for d in ("images", "depths"):
+            os.makedirs(os.path.join(sub, d))
+            for n in sorted(os.listdir(os.path.join(scene, d)))[:n_cpu_views]:
+                os.symlink(os.path.join(scene, d, n), os.path.join(sub, d, n))
+        os.symlink(os.path.join(scene, "sparse"), os.path.join(sub, "sparse"))
+        cpu_s = run_tool("extract_priors", [
+            "normals", "--source", sub, "--backend", "depth",
+            "--device", "cpu"])
+        max_ulp, n_off, n_vals = 0, 0, 0
+        for n in names[:n_cpu_views]:
+            with np.load(os.path.join(out, n + ".npz")) as z:
+                got = z["arr_0"]
+            with np.load(os.path.join(sub, "normals", n + ".npz")) as z:
+                want = z["arr_0"]
+            if got.shape != (3, height, width) or got.dtype != np.float16:
+                raise AssertionError(f"normals {n}: {got.shape} {got.dtype}")
+            ulps = f16_ulps(got, want)
+            max_ulp = max(max_ulp, int(ulps.max()))
+            n_off += int((ulps > 0).sum())
+            n_vals += ulps.size
+        if max_ulp > 1:
+            raise AssertionError(f"normals: card and CPU {max_ulp} f16 ulps "
+                                 "apart")
+        mid = names[n_views // 2]
+        with np.load(os.path.join(scene, "depths", mid + ".npz")) as z:
+            depth = torch.from_numpy(z["arr_0"]).to(device)
+        with np.load(os.path.join(out, mid + ".npz")) as z:
+            nrm = z["arr_0"].astype(np.float32)
+        inside = (depth.cpu().numpy() > 0)[1:-1, 1:-1]
+        norms = np.linalg.norm(nrm, axis=0)[1:-1, 1:-1][inside]
+        if inside.mean() < 0.1 or np.abs(norms - 1).max() > 1e-2:
+            raise AssertionError("normals of the shell are not unit vectors")
+        # the tool's intrinsics: write_colmap_views' centred pinhole
+        K = torch.tensor([[G.fov2focal(0.9, width), 0, width / 2],
+                          [0, G.fov2focal(0.7, height), height / 2],
+                          [0, 0, 1]], dtype=torch.float32, device=device)
+        compute_ms = cuda_ms(lambda: compute_normals_from_depth(depth, K),
+                             iters=timing_iters)
+
+        masks_s = run_tool("extract_priors", [
+            "masks", "--source", scene, "--backend", "all-fg"])
+        for n in (names[0], names[-1]):
+            m8 = np.asarray(Image.open(os.path.join(scene, "masks",
+                                                    n + ".png")))
+            if m8.shape != (height, width) or m8.dtype != np.uint8 \
+                    or m8.min() != 1:
+                raise AssertionError(f"mask {n}: {m8.shape} {m8.min()}")
+
+        # convert_lpips on the placeholder arrays
+        comb = L.write_placeholder_weights(os.path.join(root, "ph.npz"))
+        with np.load(comb) as z:
+            arrays = dict(z)
+        heads_nonneg = all(bool((v >= 0).all()) for k, v in arrays.items()
+                           if k.startswith("lin"))
+        vgg, lin = (os.path.join(root, f) for f in ("vgg.npz", "lin.npz"))
+        np.savez(vgg, **{k: v for k, v in arrays.items()
+                         if k.startswith("features.")})
+        np.savez(lin, **{k: v for k, v in arrays.items()
+                         if k.startswith("lin")})
+        conv = os.path.join(root, "converted.npz")
+        convert_s = run_tool("convert_lpips", ["--vgg", vgg, "--lin", lin,
+                                               "--out", conv, "--selftest"])
+        rng = np.random.default_rng(4)
+        a, b = rng.uniform(size=(2, 3, height, width)).astype(np.float32)
+        d_conv = float(L.LPIPS(conv, device=device)(a, b))
+        d_ph = float(L.LPIPS(comb, device=device)(a, b))
+        if not math.isclose(d_conv, d_ph, rel_tol=1e-6):
+            raise AssertionError(f"LPIPS converted {d_conv}, placeholder "
+                                 f"{d_ph}")
+
+        t0 = time.perf_counter()
+        info = load_scene_info(scene, eval_split=True, use_meta_split=True,
+                               load_normal=True, normal_folder="normals",
+                               data_device="lazy")
+        load_s = time.perf_counter() - t0
+        views = info.train_cameras + info.test_cameras
+        if (len(views) != n_views or [c.image_name for c in
+                                      info.test_cameras] != m["test"]
+                or not all("normal" in c.loaders for c in views)):
+            raise AssertionError("the prepared scene lacks a normal prior "
+                                 "on some view")
+        arr = views[0].arrays(device)
+        if not bool(arr.has_normal) or arr.normal.shape != (3, height, width):
+            raise AssertionError("normal prior not loaded")
+
+    phase_s = time.perf_counter() - t_phase
+    emit(phase="prep", views=n_views, width=width, height=height,
+         points=n_points, setup_s=setup_s, make_meta_s=meta_s,
+         normals_s=normals_s, normals_ms_per_view=1e3 * normals_s / n_views,
+         normals_compute_ms=compute_ms, normals_cpu_views=n_cpu_views,
+         normals_cpu_s=cpu_s, normals_max_f16_ulps=max_ulp,
+         normals_share_off_by_one_ulp=n_off / n_vals, masks_s=masks_s,
+         convert_lpips_s=convert_s, lpips_converted=d_conv,
+         lpips_placeholder=d_ph, placeholder_heads_nonnegative=heads_nonneg,
+         load_scene_s=load_s, phase_s=phase_s)
+    return dict(phase_s=phase_s)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2972,6 +3521,7 @@ def main() -> int:
     ms = phase_mesh(device)
     tnt = phase_train_tnt(device)
     ev = phase_eval_tnt(device)
+    phase_prep(device)
     # launches: each kernel's count on the main path of the slice that
     # brought it (the training run for K1 and K2, the host loop's run for
     # K3, the microprobe's entry point for K4), and K1's on the mesh path
@@ -2982,7 +3532,8 @@ def main() -> int:
     # on the TNT recipe's run (phase train_tnt), ``launches_eval_tnt`` K1's
     # on the TNT scoring path (phase eval_tnt: both meshes' fused views
     # and the fly-through's frames), ``launches_k2`` K1's and K2's on the
-    # train CLI's run with a camera batch of 2 (phase train_k2)
+    # train CLI's run with a camera batch of 2 (phase train_k2),
+    # ``launches_viewer`` K1's on the viewer's frames (phase viewer)
     tnt_launches = tnt["launches"]
     emit(kernels=[{
         "name": "rasterize_fwd", "route": "cuda",
@@ -2993,8 +3544,10 @@ def main() -> int:
         "launches_mesh": ms["launches"],
         "launches_train_tnt": tnt_launches["rasterize_fwd"],
         "launches_eval_tnt": ev["launches"],
+        "launches_viewer": tr["viewer"]["launches"],
         "max_abs_err": max(worst, sl["max_abs_err"], ms["max_abs_err"],
-                           tnt["max_abs_err"], ev["max_abs_err"]),
+                           tnt["max_abs_err"], ev["max_abs_err"],
+                           tr["viewer"]["max_abs_err"]),
         "ms": sl["kernel_ms"], "plain_ms": sl["plain_ms"],
         "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
         "library_ms": None}, {

@@ -7,10 +7,12 @@ The JAX Trainer runs ``steps_per_call: 1`` on conftest's virtual CPU
 devices: its mesh is then min(8, k) devices with one view each, the same
 mean of k views as the port's k views on one device, up to the order of
 the sums. Both start from the JAX init state with anisotropic scales and
-random rotations (``anisotropic``). Per step every loss at rtol 1e-4, the camera draws equal, the
-active masks and the densify's population exactly; the state afterwards at
-atol/rtol 1e-5; with the appearance network and the semantic head the side
-networks at atol 1e-5. The one-view step is unchanged bit for bit.
+random rotations (``anisotropic``). Per step every loss at rtol 1e-4, the
+camera draws equal, the active masks and the densify's population
+exactly, and the state after every step at atol/rtol 1e-5 but for Adam's
+rounding-noise elements (``steps_close_but_noise``); with the appearance
+network and the semantic head the side networks at atol 1e-5. The
+one-view step is unchanged bit for bit.
 """
 
 import json
@@ -89,8 +91,8 @@ def anisotropic(jtr):
 
 def run_both(jcfg, cfg, with_nets=False):
     """Both trainers ITERS steps from the same Gaussians (``anisotropic``)
-    and side networks, with recording generators: per step the losses as floats,
-    the active masks and the populations."""
+    and side networks, with recording generators: per step the losses as
+    floats, the active masks, the populations and both states."""
     jtr = JT.Trainer(jcfg)
     ptr = T.Trainer(cfg, device="cpu")
     assert_state_close(ptr.state, jtr.state)
@@ -108,44 +110,65 @@ def run_both(jcfg, cfg, with_nets=False):
                       {k: float(v) for k, v in pl.items()},
                       np.asarray(jtr.state.active),
                       ptr.state.active.numpy().copy(),
-                      len(ptr.rng.draws), len(jtr.rng.draws)))
+                      len(ptr.rng.draws), len(jtr.rng.draws),
+                      state_to_arrays(ptr.state),
+                      jax_state_arrays(jtr.state)))
     return jtr, ptr, steps
 
 
-def arrays_close_but_noise(got, want, tol=1e-5, noise=1e-4):
-    """Two states as ``state_to_arrays`` dicts at atol/rtol ``tol``, but
-    for parameter elements whose Adam first moment is rounding noise:
-    below ``noise`` times its group's largest in both, where the sign of a
-    sum that cancels decides a full-size Adam step (eps 1e-15) and two
+def steps_close_but_noise(got_steps, want_steps, tol=1e-5, noise=1e-4):
+    """Two runs' states after each step (``state_to_arrays`` dicts, each
+    taken after its step's host actions) at atol/rtol ``tol``, but for
+    parameter elements that part as Adam's rounding noise. An element may
+    part only at a step where its first moment is below ``noise`` times its
+    group's largest in both runs: there a sum that cancels decides the
+    direction or the size of a full-size Adam step (eps 1e-15), and two
     summation orders (a mean over k views on one device, over k devices or
-    ranks) may pick either sign. At most 1 in 500 elements of a parameter
-    may be such noise; every other field is held at ``tol``."""
-    for k, w in want["params"].items():
-        g = got["params"][k]
-        far = ~np.isclose(g, w, atol=tol, rtol=tol)
-        mu_g, mu_w = np.abs(got["mu"][k]), np.abs(want["mu"][k])
-        floor = noise * max(mu_g.max(initial=0), mu_w.max(initial=0))
-        quiet = (mu_g < floor) & (mu_w < floor)
-        assert not (far & ~quiet).any(), (k, np.argwhere(far & ~quiet))
-        assert far.sum() <= max(1, far.size // 500), (k, far.sum())
-    for group in ("mu", "nu"):
-        for k, v in want[group].items():
-            np.testing.assert_allclose(got[group][k], v, atol=tol, rtol=tol,
-                                       err_msg=f"{group}.{k}")
-    for k in ("active", "max_radii2d", "grad_accum", "denom"):
-        np.testing.assert_allclose(got[k], want[k], atol=tol, rtol=tol,
-                                   err_msg=k)
-    assert got["step"] == want["step"]
-
-
-def assert_state_close_but_noise(port, js):
-    """``arrays_close_but_noise`` of a port state and a JAX state."""
-    arrays_close_but_noise(state_to_arrays(port), jax_state_arrays(js))
+    ranks) may give either. Once parted it may stay apart, also after a
+    densify has reset the moments that showed why (a final state alone
+    cannot tell), and so may the slots a densify fills with a copy of its
+    row in both runs. At most 1 in 500 elements of a parameter may part;
+    every other field is held at ``tol`` after every step."""
+    roots, copies, prev_active = {}, {}, None
+    for got, want in zip(got_steps, want_steps):
+        active = want["active"].astype(bool)
+        born = (active & ~prev_active if prev_active is not None
+                else np.zeros_like(active))
+        for k, w in want["params"].items():
+            g = got["params"][k]
+            far = ~np.isclose(g, w, atol=tol, rtol=tol)
+            root = roots.get(k, np.zeros(w.shape, bool))
+            copy = copies.get(k, np.zeros(w.shape, bool))
+            parted = root | copy
+            for i in np.flatnonzero(born):
+                for src in np.flatnonzero(parted.reshape(len(w), -1).any(1)):
+                    if (np.array_equal(g[i], g[src])
+                            and np.array_equal(w[i], w[src])):
+                        copy[i] |= parted[src]
+            mu_g, mu_w = np.abs(got["mu"][k]), np.abs(want["mu"][k])
+            floor = noise * max(mu_g.max(initial=0), mu_w.max(initial=0))
+            quiet = (mu_g < floor) & (mu_w < floor)
+            bad = far & ~(quiet | root | copy)
+            assert not bad.any(), (k, np.argwhere(bad))
+            roots[k] = root | (far & quiet & ~copy)
+            copies[k] = copy
+            assert (far & ~copy).sum() <= max(1, far.size // 500), (
+                k, far.sum())
+        for group in ("mu", "nu"):
+            for k, v in want[group].items():
+                np.testing.assert_allclose(got[group][k], v, atol=tol,
+                                           rtol=tol, err_msg=f"{group}.{k}")
+        for k in ("active", "max_radii2d", "grad_accum", "denom"):
+            np.testing.assert_allclose(got[k], want[k], atol=tol, rtol=tol,
+                                       err_msg=k)
+        assert got["step"] == want["step"]
+        prev_active = active
 
 
 def check_steps(jtr, ptr, steps, k):
     assert ptr.iteration == jtr.iteration == ITERS
-    for it, (want, got, jact, pact, npd, njd) in enumerate(steps, 1):
+    for it, (want, got, jact, pact, npd, njd, _, _) in enumerate(steps,
+                                                                 1):
         assert set(got) == set(want), it
         for name, v in want.items():
             assert got[name] == pytest.approx(v, rel=1e-4, abs=1e-7), (
@@ -159,7 +182,7 @@ def check_steps(jtr, ptr, steps, k):
         (3, "densify")]
     assert ptr.state.num_active == int(jtr.state.num_active)
     assert ptr.host_log[0]["n_after"] != ptr.host_log[0]["n_before"]
-    assert_state_close_but_noise(ptr.state, jtr.state)
+    steps_close_but_noise([st[6] for st in steps], [st[7] for st in steps])
 
 
 @pytest.mark.parametrize("k", [2, 3])

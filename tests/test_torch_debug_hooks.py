@@ -2,10 +2,11 @@
 tests/test_trainer_extras.py holds the JAX Trainer's: ``train.debug_from``
 turns on anomaly detection and the per-step finite checks from its
 iteration on, ``detect_anomaly`` for the whole run, and a positive
-``port`` (the viewer bridge, not ported) raises at construction."""
+``port`` opens the viewer bridge's listener at construction."""
 
 import json
 import os
+import socket
 
 import pytest
 import torch
@@ -84,8 +85,25 @@ def test_detect_anomaly_turns_on_for_the_run(scene_dir, tmp_path,
     assert torch.isfinite(losses["total"])
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def test_port_raises_naming_the_viewer(scene_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="viewer"):
-        T.Trainer(config(scene_dir, tmp_path, port=6009), device="cpu")
-    # the default (-1) trains
-    T.Trainer(config(scene_dir, tmp_path / "ok", port=-1), device="cpu")
+    """The viewer key no longer raises: ``port > 0`` opens a listener on
+    that port (a client connects to it), and the default ``port = -1``
+    opens none and trains."""
+    port = free_port()
+    tr = T.Trainer(config(scene_dir, tmp_path, port=port), device="cpu")
+    try:
+        assert tr._gui is not None
+        assert tr._gui.listener.getsockname() == ("127.0.0.1", port)
+        with socket.create_connection(("127.0.0.1", port), timeout=5):
+            pass
+    finally:
+        tr._gui.close()
+    tr = T.Trainer(config(scene_dir, tmp_path / "ok", port=-1), device="cpu")
+    assert tr._gui is None
+    tr.train_step()

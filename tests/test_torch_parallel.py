@@ -11,9 +11,10 @@ Trainer's init state with anisotropic scales and random rotations
 ranks' states identical, exactly; against the single-process port and the
 JAX Trainer at camera_batch 4 (its mesh of 4 virtual devices), per-step
 losses at rtol 1e-4, the camera draws equal, the active masks exactly and
-the state at 1e-5 (but for Adam's rounding-noise elements, as in
-test_torch_camera_batch); only rank 0 wrote files; the standalone step
-against the JAX package's ``make_camera_dp_step`` on a 2-device mesh.
+the state after every step at 1e-5 (but for Adam's rounding-noise
+elements, ``test_torch_camera_batch.steps_close_but_noise``); only rank
+0 wrote files; the standalone step against the JAX package's
+``make_camera_dp_step`` on a 2-device mesh.
 ``scene_dispatch`` returns its results in order, sequential and parallel.
 """
 
@@ -68,24 +69,24 @@ def overrides(scene, logdir):
 
 def train_port(scene, logdir, start):
     """The port's Trainer over ITERS steps from the state ``start`` (a
-    ``state_to_arrays`` dict): (state arrays, history, draws, active masks
-    per step)."""
+    ``state_to_arrays`` dict): (state arrays, history, draws, state arrays
+    after each step)."""
     from vcr_gaus_tpu_torch.train.trainer import Trainer
     tr = Trainer(Config(DTU, overrides=overrides(scene, logdir)),
                  device="cpu")
     tr.state = state_from_arrays(start, "cpu")
     tr.rng = Recording(0)
-    masks = []
+    states = []
     step = tr.train_step
 
     def recorded():
         out = step()
-        masks.append(tr.state.active.numpy().copy())
+        states.append(state_to_arrays(tr.state))
         return out
 
     tr.train_step = recorded
     tr.train(max_iters=ITERS, log_every=1)
-    return state_to_arrays(tr.state), tr.history, tr.rng.draws, masks
+    return state_to_arrays(tr.state), tr.history, tr.rng.draws, states
 
 
 def _rank_main(rank, store, scene, out_dir, inputs):
@@ -96,7 +97,7 @@ def _rank_main(rank, store, scene, out_dir, inputs):
     try:
         with open(inputs, "rb") as f:
             inp = pickle.load(f)
-        res = dict(zip(("state", "history", "draws", "masks"), train_port(
+        res = dict(zip(("state", "history", "draws", "states"), train_port(
             scene, os.path.join(out_dir, f"log{rank}"), inp["start"])))
         # the standalone step on this rank's share of a 2-camera batch
         from vcr_gaus_tpu_torch.data.cameras import CameraArrays
@@ -153,7 +154,7 @@ def runs(tmp_path_factory):
     for _ in range(ITERS):
         losses, _ = jtr.train_step()
         jax_steps.append(({k: float(v) for k, v in losses.items()},
-                          np.asarray(jtr.state.active)))
+                          jax_state_arrays(jtr.state)))
 
     # the standalone step: 2 cameras on a 2-device mesh, the synthetic
     # state made anisotropic as above
@@ -209,8 +210,8 @@ def test_ranks_stay_identical(runs):
     assert a["dp_step"][1] == b["dp_step"][1]
 
 
-def check_against(rank, history, draws, masks, state):
-    from test_torch_camera_batch import arrays_close_but_noise
+def check_against(rank, history, draws, states):
+    from test_torch_camera_batch import steps_close_but_noise
     assert [r["iter"] for r in rank["history"]] == list(range(1, ITERS + 1))
     for want, got in zip(history, rank["history"]):
         for name, v in want.items():
@@ -220,23 +221,23 @@ def check_against(rank, history, draws, masks, state):
     assert rank["draws"] == draws
     # 2K before the first step, K a step, the densify's 3 box-mask views
     assert len(draws) == K * (ITERS + 1) + 3
-    for x, y in zip(rank["masks"], masks):
-        np.testing.assert_array_equal(x, y)
-    arrays_close_but_noise(rank["state"], state)
+    assert len(rank["states"]) == len(states) == ITERS
+    for x, y in zip(rank["states"], states):
+        np.testing.assert_array_equal(x["active"], y["active"])
+    steps_close_but_noise(rank["states"], states)
 
 
 def test_camera_dp_matches_single_process(runs):
-    state, history, draws, masks = runs["single"]
-    check_against(runs["ranks"][0], history, draws, masks, state)
+    _, history, draws, states = runs["single"]
+    check_against(runs["ranks"][0], history, draws, states)
 
 
 def test_camera_dp_matches_jax_trainer(runs):
-    from test_torch_train import jax_state_arrays
     jtr, steps = runs["jax"]
     history = [{**losses, "iter": i} for i, (losses, _) in
                enumerate(steps, 1)]
     check_against(runs["ranks"][0], history, jtr.rng.draws,
-                  [m for _, m in steps], jax_state_arrays(jtr.state))
+                  [st for _, st in steps])
 
 
 def test_only_rank_zero_writes(runs):
@@ -249,11 +250,11 @@ def test_only_rank_zero_writes(runs):
 
 
 def test_camera_dp_step_matches_jax(runs):
-    from test_torch_camera_batch import arrays_close_but_noise
+    from test_torch_camera_batch import steps_close_but_noise
     want, want_loss = runs["jax_step"]
     got, loss = runs["ranks"][0]["dp_step"]
     assert loss == pytest.approx(want_loss, rel=1e-5)
-    arrays_close_but_noise(got, want)
+    steps_close_but_noise([got], [want])
     start = runs["ranks"][0]["dp_step"][0]["step"]
     assert start == 1 and np.abs(got["params"]["xyz"]).max() > 0
 

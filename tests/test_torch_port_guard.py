@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it loads neither jax (nor flax
-or optax) nor the JAX package, and no source file of the port or
+or optax) nor the JAX package, no source file of the port or
 chip_smoke.py imports any of them, nor OpenCV, open3d or trimesh, which the
-machine with the card does not have."""
+machine with the card does not have, and the data-preparation tools run as
+``python -m`` entry points where none of them can be imported."""
 
 import os
 import re
@@ -75,6 +76,70 @@ def test_walk_imports_the_runners_without_side_effects(tmp_path):
     for mod in ("tools.run_tnt", "tools.run_dtu", "tools.run_mipnerf360",
                 "tools.full_eval", "tools.crop_mesh", "tools.stages",
                 "utils.render_paths", "evaluation.tnt_official",
-                "tools.run_scannetpp", "parallel.dp"):
+                "tools.run_scannetpp", "parallel.dp",
+                "render.network_gui", "render.orbit", "tools.make_meta",
+                "tools.extract_priors", "tools.convert_lpips"):
         assert f"'vcr_gaus_tpu_torch.{mod}'" in names, mod
     assert side == "'' []"
+
+
+BLOCKER = (
+    "import importlib.abc, sys\n"
+    "class Block(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+    "                                  'vcr_gaus_tpu', 'cv2', 'open3d',\n"
+    "                                  'trimesh'):\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, Block())\n")
+
+
+def test_prep_tools_run_without_jax(tmp_path):
+    """make_meta (all three modes), extract_priors (normals from depth,
+    all-foreground masks) and convert_lpips (with its self-test) through
+    ``runpy`` as ``python -m`` runs them, in a process where importing jax
+    or the JAX package raises."""
+    import numpy as np
+    from PIL import Image
+
+    from fixtures import write_colmap_scene
+    scene = tmp_path / "scene"
+    write_colmap_scene(str(scene), n_cams=3, n_pts=80, width=24, height=16)
+    (scene / "depths").mkdir()
+    for i in range(3):
+        np.savez(scene / "depths" / f"img_{i:03d}.npz",
+                 np.full((16, 24), 2.0, np.float32))
+    runs = [("make_meta", ["--source", str(scene), "--mode", m,
+                           "--split_ratio", "0.5"])
+            for m in ("points", "pose", "obb")]
+    runs += [("extract_priors", ["normals", "--source", str(scene),
+                                 "--backend", "depth"]),
+             ("extract_priors", ["masks", "--source", str(scene),
+                                 "--backend", "all-fg"]),
+             ("convert_lpips", ["--vgg", str(tmp_path / "w.npz"), "--lin",
+                                str(tmp_path / "w.npz"), "--out",
+                                str(tmp_path / "c.npz"), "--selftest"])]
+    code = BLOCKER + (
+        "import runpy\n"
+        "from vcr_gaus_tpu_torch.evaluation.lpips import "
+        "write_placeholder_weights\n"
+        f"write_placeholder_weights({str(tmp_path / 'w.npz')!r})\n"
+        f"for tool, argv in {runs!r}:\n"
+        "    sys.argv = [tool] + argv + ['--device', 'cpu']\n"
+        "    runpy.run_module('vcr_gaus_tpu_torch.tools.' + tool,\n"
+        "                     run_name='__main__', alter_sys=True)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'vcr_gaus_tpu'))\n"
+        "print('loaded', bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "loaded []" in res.stdout
+    assert "selftest: d(x,x)=0.000000" in res.stdout
+    assert os.path.exists(scene / "meta.json")
+    assert len(os.listdir(scene / "normals")) == 3
+    with np.load(scene / "normals" / "img_000.npz") as z:
+        assert z["arr_0"].dtype == np.float16
+    assert np.asarray(Image.open(scene / "masks" / "img_000.png")).min() == 1

@@ -6,12 +6,18 @@ with a compressed schedule (4 iterations, a checkpoint at 3, test, save and
 a densify with 6 box views of 64x64 at 4).
 
 Both start from the same Gaussians and side networks (the JAX Trainer's,
-carried across in the flax layout). The JAX Trainer runs its single-step
-path (tpu.steps_per_call 1) with tile 16, in interpret mode on the CPU.
-Per step every loss at rtol 1e-4; the side networks after the run at atol
-1e-5; the camera draws equal; a densify from one state with its active
-mask and drop count exactly equal; mIoU at 1e-6; the writer's tags; the
-saves, model.pkl and the checkpoints of both packages.
+carried across in the flax layout), the Gaussians with anisotropic scales
+and random rotations (``test_torch_camera_batch.anisotropic``): from the
+isotropic kNN init a quaternion's gradient is rounding noise (its Adam
+first moment 4e-8 of the group's largest), which Adam (eps 1e-15) turns
+into a full +-lr step of either sign, and the two runs' rendered depth
+then parts by 1e-2 within three steps. The JAX Trainer runs its
+single-step path (tpu.steps_per_call 1) with tile 16, in interpret mode
+on the CPU. Per step every loss at rtol 1e-4, and mono_depth's inputs and
+function on their own; the side networks after the run at atol 1e-5; the
+camera draws equal; a densify from one state with its active mask and
+drop count exactly equal; mIoU at 1e-6; the writer's tags; the saves,
+model.pkl and the checkpoints of both packages.
 """
 
 import json
@@ -27,14 +33,17 @@ import torch
 from PIL import Image
 
 from fixtures import write_colmap_scene
+from test_torch_camera_batch import anisotropic
 from test_torch_host_loop import RecordingRandom
 from test_torch_train import assert_state_close, jax_state_arrays
 from vcr_gaus_tpu.config import Config as JConfig
 from vcr_gaus_tpu.models import ply_io as JPLY
+from vcr_gaus_tpu.train import losses as JL
 from vcr_gaus_tpu.train import trainer as JT
 from vcr_gaus_tpu_torch.config import Config
 from vcr_gaus_tpu_torch.models import ply_io as PLY
 from vcr_gaus_tpu_torch.models.convert import state_from_arrays
+from vcr_gaus_tpu_torch.train import losses as L
 from vcr_gaus_tpu_torch.train import trainer as T
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,27 +129,60 @@ def scene_dir(tmp_path_factory):
     return root
 
 
+def recording_depth_loss(monkeypatch, record):
+    """Both packages' scale_and_shift_invariant_depth_loss, unchanged in
+    value, recording their inputs (the step's rendered depth, the prior and
+    the mask) as numpy into ``record["jax"]`` and ``record["port"]``; the
+    JAX one through a debug callback from inside its jitted step."""
+    jfn, pfn = JL.scale_and_shift_invariant_depth_loss, \
+        L.scale_and_shift_invariant_depth_loss
+
+    def keep(side, *arrays):
+        record[side].append(tuple(np.array(a) for a in arrays))
+
+    def jax_loss(prediction, target, mask=None, **kw):
+        jax.debug.callback(lambda *a: keep("jax", *a), prediction, target,
+                           mask)
+        return jfn(prediction, target, mask, **kw)
+
+    def port_loss(prediction, target, mask=None, **kw):
+        keep("port", *(x.detach() for x in (prediction, target, mask)))
+        return pfn(prediction, target, mask, **kw)
+
+    monkeypatch.setattr(JL, "scale_and_shift_invariant_depth_loss",
+                        jax_loss)
+    monkeypatch.setattr(L, "scale_and_shift_invariant_depth_loss",
+                        port_loss)
+
+
 @pytest.fixture(scope="module")
 def runs(scene_dir, tmp_path_factory):
-    """Both trainers over the schedule from the same Gaussians and side
-    networks, with recording generators and writers."""
+    """Both trainers over the schedule from the same Gaussians
+    (``anisotropic``: the init state with anisotropic scales and random
+    rotations) and side networks, with recording generators and writers,
+    and the inputs of each step's mono_depth loss in both packages."""
     jdir = tmp_path_factory.mktemp("jax_tnt")
     pdir = tmp_path_factory.mktemp("port_tnt")
     jcfg, cfg = configs(scene_dir, jdir, pdir)
-    jtr = JT.Trainer(jcfg)
-    ptr = T.Trainer(cfg, device="cpu")
-    assert_state_close(ptr.state, jtr.state)
-    ptr.state = state_from_arrays(jax_state_arrays(jtr.state), "cpu")
-    ptr.nets.load_state_dict(jax.tree.map(np.asarray, jtr.net._asdict()))
-    jtr.rng, ptr.rng = RecordingRandom(0), RecordingRandom(0)
-    jtr._tb, ptr._tb = Writer(), Writer()
-    jtr.train(log_every=1)
-    ptr.train(log_every=1)
-    return jtr, ptr, str(jdir), str(pdir)
+    depth_inputs = {"jax": [], "port": []}
+    with pytest.MonkeyPatch.context() as mp:
+        recording_depth_loss(mp, depth_inputs)
+        jtr = JT.Trainer(jcfg)
+        ptr = T.Trainer(cfg, device="cpu")
+        assert_state_close(ptr.state, jtr.state)
+        jtr.state = anisotropic(jtr)
+        ptr.state = state_from_arrays(jax_state_arrays(jtr.state), "cpu")
+        ptr.nets.load_state_dict(jax.tree.map(np.asarray,
+                                              jtr.net._asdict()))
+        jtr.rng, ptr.rng = RecordingRandom(0), RecordingRandom(0)
+        jtr._tb, ptr._tb = Writer(), Writer()
+        jtr.train(log_every=1)
+        ptr.train(log_every=1)
+    return jtr, ptr, str(jdir), str(pdir), depth_inputs
 
 
 def test_losses_match_jax_per_step(runs):
-    jtr, ptr, _, _ = runs
+    jtr, ptr = runs[:2]
     assert [r["iter"] for r in ptr.history] == list(range(1, ITERS + 1))
     assert ptr.ch_sem == jtr.ch_sem == 2 and ptr.nets.app is not None
     for want, got in zip(jtr.history, ptr.history):
@@ -158,8 +200,30 @@ def test_losses_match_jax_per_step(runs):
     assert ptr.state.num_active == int(jtr.state.num_active) > 400
 
 
+def test_depth_loss_and_its_inputs_match_jax(runs):
+    """Each step's mono_depth split into its inputs and its function: the
+    rendered depth at the forward tolerance (tests/test_rasterize.py:88),
+    the prior and the mask exactly, and the port's function on the JAX
+    step's inputs at rtol 1e-5 of the JAX function's."""
+    record = runs[4]
+    assert len(record["jax"]) == len(record["port"]) == ITERS
+    for it, ((dj, tj, mj), (dp, tp, mp)) in enumerate(
+            zip(record["jax"], record["port"]), 1):
+        np.testing.assert_allclose(dp, dj, atol=2e-4, rtol=1e-3,
+                                   err_msg=f"depth, step {it}")
+        np.testing.assert_array_equal(tp, tj, err_msg=f"prior, step {it}")
+        np.testing.assert_array_equal(mp, mj, err_msg=f"mask, step {it}")
+        assert mj.sum() > 0.5 * mj.size, it
+        want = float(JL.scale_and_shift_invariant_depth_loss(
+            jnp.asarray(dj), jnp.asarray(tj), jnp.asarray(mj)))
+        got = float(L.scale_and_shift_invariant_depth_loss(
+            torch.from_numpy(dj), torch.from_numpy(tj),
+            torch.from_numpy(mj)))
+        assert got == pytest.approx(want, rel=1e-5), it
+
+
 def test_side_networks_match_jax(runs):
-    jtr, ptr, _, _ = runs
+    jtr, ptr = runs[:2]
     want = jax.tree.map(np.asarray, jtr.net._asdict())
     got = ptr.nets.state_dict()
     for name in ("app_embeddings", "app_params", "cls_params"):
@@ -177,7 +241,7 @@ def test_side_networks_match_jax(runs):
 def test_camera_draws_match_jax(runs):
     """The random box cameras draw nothing from the trainer's generator:
     the draws are the steps' cameras and the lookahead alone."""
-    jtr, ptr, _, _ = runs
+    jtr, ptr = runs[:2]
     assert ptr.rng.draws == jtr.rng.draws
     assert len(ptr.rng.draws) == ITERS + 1
 
@@ -240,7 +304,7 @@ def test_evaluate_miou_matches_jax(runs, synced):
 def test_run_test_writes_jax_tags(runs):
     """The writer's scalar, image and histogram tags of the run (its
     per-step scalars and the test at 4) are the JAX Trainer's."""
-    jtr, ptr, _, _ = runs
+    jtr, ptr = runs[:2]
     jw, pw = jtr._tb, ptr._tb
     for kind in ("scalar", "image", "histogram"):
         assert pw.tags(kind) == jw.tags(kind), kind
@@ -291,7 +355,7 @@ def test_checkpoints_with_side_networks_resume(runs, scene_dir, tmp_path):
     """The JAX Trainer's checkpoint at 3 (optax's Adam state pickled)
     resumes in the port with equal Gaussians, networks and Adam states;
     the port's own checkpoint at 3 resumes the same way."""
-    jtr, ptr, jdir, pdir = runs
+    jtr, ptr, jdir, pdir = runs[:4]
     _, cfg = configs(scene_dir, tmp_path / "j", tmp_path / "p", **{
         "train.start_checkpoint": os.path.join(jdir, "chkpnt3.npz")})
     tr = T.Trainer(cfg, device="cpu")

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.knn import remove_radius_outlier
 from ..utils import colmap as CM
 from ..utils import graphics as G
 from ..utils.ply import read_points_ply, write_points_ply
@@ -315,28 +316,11 @@ def _read_points(colmap_dir: str):
     return xyz, rgb.astype(np.float64) / 255.0
 
 
-def _radius_neighbor_counts(points: np.ndarray, radius: float,
-                            block: int = 1024, max_k: int = 64) -> np.ndarray:
-    """Neighbors (self excluded) within ``radius``, counting at most the
-    ``max_k`` nearest, by blocked brute force on the host."""
-    pts = torch.as_tensor(points, dtype=torch.float32)
-    sq = (pts * pts).sum(-1)
-    r2 = radius * radius
-    n = pts.shape[0]
-    counts = []
-    for s in range(0, n, block):
-        p = pts[s:s + block]
-        d2 = (sq[s:s + block, None] + sq[None, :] - 2.0 * (p @ pts.T)
-              ).clamp_min(0.0)
-        rows = torch.arange(s, s + p.shape[0])
-        d2[torch.arange(p.shape[0]), rows] = float("inf")
-        counts.append((d2 <= r2).sum(-1).clamp_max(min(n - 1, max_k)))
-    return torch.cat(counts).numpy()
-
-
 def filter_point_cloud(trans, scale, xyz, rgb, nb_points=5, radius=0.1):
-    """Radius-outlier removal of the points inside the 1.5x box; points
-    outside pass through."""
+    """Radius-outlier removal of the points inside the 1.5x box, by
+    ``ops.knn.remove_radius_outlier`` on the host (the JAX package's
+    counts: exact up to ``knn.EXACT_MAX_N`` points, its Morton windows
+    above); points outside pass through."""
     trans = np.asarray(trans, np.float32)
     x = np.asarray(xyz, np.float32)
     if trans.ndim == 1:
@@ -346,7 +330,8 @@ def filter_point_cloud(trans, scale, xyz, rgb, nb_points=5, radius=0.1):
     inside = np.all(np.abs(pts_norm) < 1.5, axis=-1)
     if inside.sum() < 10:
         return xyz, rgb
-    keep_inside = _radius_neighbor_counts(xyz[inside], radius) >= nb_points
+    keep_inside = remove_radius_outlier(
+        torch.as_tensor(x[inside]), nb_points, radius).numpy()
     if keep_inside.mean() < 0.1:
         # the radius is tuned for dense COLMAP clouds; on sparse clouds it
         # would discard everything, so skip rather than destroy the init

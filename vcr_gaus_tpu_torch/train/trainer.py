@@ -26,13 +26,17 @@ the debug hooks (``detect_anomaly``, ``train.debug_from``) follow the
 iteration as in the JAX package. The JAX package's entry budget, overflow
 handling, supersteps (``tpu.steps_per_call``), binning lookahead and
 camera cache exist for its static shapes on the TPU and have no
-counterpart here; its viewer bridge (``port``) is not ported yet, and a
-positive ``port`` raises.
+counterpart here. With ``port > 0`` rank 0 serves the SIBR viewer
+(``render.network_gui``): before each iteration it answers the pending
+viewer requests, one render of the requested camera each, and a
+``train: false`` request pauses training until the viewer resumes it or
+disconnects.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -53,6 +57,7 @@ from ..models import appearance as APP
 from ..models import gaussians as GM
 from ..models import ply_io
 from ..parallel import dp as DP
+from ..render.network_gui import NetworkGUI
 from ..render.renderer import RenderConfig, render, render_stats
 from ..utils import math as M
 from ..utils.device import resolve_device
@@ -260,10 +265,6 @@ class Trainer:
     def __init__(self, cfg, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if int(getattr(cfg, "port", -1) or -1) > 0:
-            raise NotImplementedError(
-                f"port={cfg.port}: the viewer bridge (network_gui) is not "
-                "ported yet; run with port -1")
         # the JAX package's debug hooks: detect_anomaly for the whole run,
         # train.debug_from from that iteration on
         if bool(getattr(cfg, "detect_anomaly", False)):
@@ -274,6 +275,13 @@ class Trainer:
         self.rank, self.world_size = DP.world()
         self.distributed = DP.initialized()
         self.is_main = self.rank == 0
+        # the viewer bridge (port > 0), on rank 0 alone
+        self._gui = None
+        self._gui_paused = False
+        self._gui_rcfgs: dict[tuple[int, int], RenderConfig] = {}
+        if int(getattr(cfg, "port", -1) or -1) > 0 and self.is_main:
+            self._gui = NetworkGUI(str(getattr(cfg, "ip", "127.0.0.1")),
+                                   int(cfg.port), self.device)
         self.camera_batch = max(int(getattr(cfg.tpu, "camera_batch", 1)), 1)
         if self.camera_batch % self.world_size:
             raise ValueError(
@@ -498,6 +506,8 @@ class Trainer:
         self._t0 = time.time()
         pending = []
         while self.iteration < max_iters:
+            with record_function("train.gui"):
+                self._gui_pump()
             losses, _ = self.train_step()
             pending.append((self.iteration, losses,
                             self.state.active.sum()))
@@ -548,6 +558,57 @@ class Trainer:
         """Flush and close the metric writers."""
         if self._tb is not None:
             self._tb.finish()
+
+    # -- viewer -------------------------------------------------------------
+
+    def _gui_pump(self) -> None:
+        """Serve the viewer's pending requests: each request with a camera
+        gets one frame (``gui_frame``). A ``train: false`` request pauses
+        training: the pump keeps polling across empty polls until a
+        ``train: true`` request arrives or the viewer disconnects."""
+        if self._gui is None:
+            return
+        while True:
+            req = self._gui.poll()
+            if req is None:
+                if not self._gui_paused or self._gui.conn is None:
+                    return
+                time.sleep(0.01)
+                continue
+            self._gui_paused = not req.do_training and req.keep_alive
+            if req.camera is not None:
+                self._gui.send_image(
+                    self.gui_frame(req.camera, req.scaling_modifier),
+                    self.cfg.model.source_path)
+            if req.do_training:
+                return
+            time.sleep(0.01)
+
+    def gui_frame(self, cam: CameraArrays,
+                  scaling_modifier: float = 1.0) -> torch.Tensor:
+        """The viewer's (3,H,W) frame of ``cam`` at its size: no semantic
+        channels or normals, a zero background, the model's full SH degree
+        (exact during the warmup: the degrees not yet trained have zero
+        coefficients), and the scaling modifier folded into the log-scales
+        as log(max(sm, 1e-6)), as the JAX package does, not into
+        ``RenderConfig.scale_modifier``. One forward kernel launch, no
+        autograd graph."""
+        h, w = cam.image.shape[1:]
+        rcfg = self._gui_rcfgs.get((w, h))
+        if rcfg is None:
+            rcfg = self._gui_rcfgs[(w, h)] = self.rcfg._replace(
+                width=w, height=h, ch_sem=0, return_normal=False)
+        log_sm = torch.log(torch.clamp_min(torch.tensor(
+            scaling_modifier, dtype=torch.float32), 1e-6)).to(self.device)
+        p = self.state.params
+        state = self.state.replace(params=dataclasses.replace(
+            p, log_scale=p.log_scale + log_sm))
+        with torch.no_grad():
+            out = render(state, cam, rcfg,
+                         torch.zeros(3, device=self.device),
+                         int(self.cfg.model.sh_degree),
+                         scene_extent=float(self.extent))
+        return out["render"]
 
     # -- host actions -------------------------------------------------------
 
