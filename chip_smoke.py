@@ -978,9 +978,13 @@ def write_train_scene(root, n_gauss, width, height, n_views, seed=0,
 
 def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
                 n_views=8, iters=20, timed_steps=10, profiled_steps=3,
-                scale_mult=4.0) -> dict:
+                scale_mult=4.0, workdir=None) -> dict:
     """Phase 4: the training path at full width through the train CLI, then
-    the timed step, the profile and the backward kernel's numbers."""
+    the timed step, the profile and the backward kernel's numbers. The
+    scene and the run are written under ``workdir`` and left there when it
+    is given (phase prep's census reads the run), else under a temporary
+    directory."""
+    import contextlib
     import dataclasses
 
     import torch
@@ -991,7 +995,8 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
     from vcr_gaus_tpu_torch.train.__main__ import main as train_main
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as root:
+    with (tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build"))
+          if workdir is None else contextlib.nullcontext(workdir)) as root:
         t0 = time.perf_counter()
         scene = write_train_scene(root, n_gauss, width, height, n_views)
         setup_s = time.perf_counter() - t0
@@ -1179,7 +1184,7 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
                 bound_ms=bound_ms,
                 bound_by="operations" if flop_s >= byte_s else "bytes",
                 max_abs_err=worst_error(groups), launches_k2=k2["launches"],
-                viewer=viewer)
+                viewer=viewer, cfg_path=os.path.join(logdir, "config.yaml"))
 
 
 def same(a, b) -> bool:
@@ -3297,35 +3302,241 @@ def f16_ulps(a, b) -> np.ndarray:
     return np.abs(key(a) - key(b))
 
 
-def run_tool(tool, argv) -> float:
+def run_tool(tool, argv, printed=None) -> float:
     """``python -m vcr_gaus_tpu_torch.tools.<tool> <argv>``, in this process;
-    its seconds."""
+    its seconds. What it prints is appended to the list ``printed``, when
+    one is given."""
     import contextlib
     import io
     import runpy
 
     saved = sys.argv
     sys.argv = [tool] + argv
+    buf = io.StringIO()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(buf):
             runpy.run_module(f"vcr_gaus_tpu_torch.tools.{tool}",
                              run_name="__main__", alter_sys=True)
     finally:
         sys.argv = saved
+        if printed is not None:
+            printed.append(buf.getvalue())
     return time.perf_counter() - t0
 
 
+def prep_converters(root, scene, n_views, n_stl, pose_meta) -> dict:
+    """The scene converters on the prep scene, each run as ``python -m``
+    runs it on the default device: convert_dtu on a DTU layout of the
+    scene's views (numeric names) with an ``n_stl``-point STL stand-in on
+    the shell, convert_360 over the directory holding the scene (its
+    meta.json must be make_meta's pose box ``pose_meta``), convert_tnt's
+    --export_json on a TNT layout (the STL as the GT cloud, a rigid
+    alignment) and its init model from a trajectory log of the scene's
+    poses, the colmap-driven stages stopping at the missing binary, and
+    visualize_cameras (a PNG where matplotlib is installed, else a
+    non-zero exit that says so)."""
+    import importlib.util
+    import sqlite3
+
+    from vcr_gaus_tpu_torch.tools import convert_dtu as CD
+    from vcr_gaus_tpu_torch.tools import convert_tnt as CT
+    from vcr_gaus_tpu_torch.utils.colmap import qvec_to_rotmat
+    from vcr_gaus_tpu_torch.utils.ply import write_points_ply
+
+    rng = np.random.default_rng(5)
+    names = sorted(os.listdir(os.path.join(scene, "images")))
+    stl_pts = sphere_shell(rng, n_stl)[0].astype(np.float64)
+    # DTU: scan1 with the scene's views under numeric names and the STL
+    dtu = os.path.join(root, "dtu")
+    os.makedirs(os.path.join(dtu, "scan1", "images"))
+    for i, n in enumerate(names):
+        os.symlink(os.path.join(scene, "images", n),
+                   os.path.join(dtu, "scan1", "images", f"{i:06d}.png"))
+    os.makedirs(os.path.join(dtu, "Points", "stl"))
+    stl = os.path.join(dtu, "Points", "stl", "stl001_total.ply")
+    write_points_ply(stl, stl_pts)
+    printed = []
+    dtu_s = run_tool("convert_dtu", ["--dtu_path", dtu], printed)
+    with open(os.path.join(dtu, "scan1", "meta.json")) as f:
+        m = json.load(f)
+    T, scale = np.asarray(m["trans"]), np.asarray(m["scale"])
+    sub = stl_pts[::10]
+    want_test = [f"{i:06d}" for i in CD.TEST_INDEXES if i < n_views]
+    if (T.shape != (4, 4)
+            or not np.allclose(T[:3, :3] @ T[:3, :3].T, np.eye(3),
+                               atol=1e-9)
+            or not np.all(np.abs(sub @ T[:3, :3].T + T[:3, 3]) <= scale)
+            or not np.allclose(scale, 1.2 * MESH_RADIUS, rtol=1e-2)
+            or m["test"] != want_test
+            or len(m["train"]) != n_views - len(want_test)
+            or not printed[-1].startswith("[meta] scan1: scale")):
+        raise AssertionError(f"convert_dtu: {m} {printed}")
+
+    # Mip-NeRF 360: the scene's own sparse model; the DTU layout skipped
+    m360_s = run_tool("convert_360", ["--data_path", root], printed)
+    with open(os.path.join(scene, "meta.json")) as f:
+        m = json.load(f)
+    if (m != {k: pose_meta[k] for k in ("trans", "scale")}
+            or "skip dtu: no COLMAP model" not in printed[-1]):
+        raise AssertionError(f"convert_360: {m}, pose {pose_meta}, "
+                             f"{printed[-1]}")
+
+    # Tanks and Temples: GT cloud, alignment, trajectory log, database
+    tnt = os.path.join(root, "tnt")
+    os.makedirs(tnt)
+    ang = 0.3
+    align = np.eye(4)
+    align[:3, :3] = [[np.cos(ang), -np.sin(ang), 0],
+                     [np.sin(ang), np.cos(ang), 0], [0, 0, 1]]
+    align[:3, 3] = [0.5, -0.2, 0.1]
+    gt = stl_pts @ align[:3, :3].T + align[:3, 3]
+    write_points_ply(os.path.join(tnt, "Barn.ply"), gt)
+    with open(os.path.join(tnt, "Barn_trans.txt"), "w") as f:
+        f.write("\n".join(" ".join(repr(float(v)) for v in row)
+                          for row in align) + "\n")
+    w2c_true = []
+    with open(os.path.join(tnt, "Barn_COLMAP_SfM.log"), "w") as f:
+        for i, (R, t) in enumerate(dtu_poses(n_views)):
+            w2c = np.eye(4)
+            w2c[:3, :3], w2c[:3, 3] = R, t
+            w2c_true.append(w2c)
+            f.write(f"{i} {i} 0\n")
+            for row in np.linalg.inv(w2c):
+                f.write(" ".join(repr(float(v)) for v in row) + "\n")
+    tnt_s = run_tool("convert_tnt", ["--source", tnt, "--scene", "Barn",
+                                     "--export_json"], printed)
+    with open(os.path.join(tnt, "meta.json")) as f:
+        m = json.load(f)
+    T, scale = np.asarray(m["trans"]), np.asarray(m["scale"])
+    sub = stl_pts[::100]                  # the GT back in the camera frame
+    if (not np.all(np.abs(sub @ T[:3, :3].T + T[:3, 3]) <= scale)
+            or not np.allclose(scale, 1.2 * MESH_RADIUS, rtol=2e-2)
+            or not printed[-1].startswith("wrote meta.json:")):
+        raise AssertionError(f"convert_tnt: {m} {printed[-1]}")
+    db = os.path.join(tnt, "database.db")
+    con = sqlite3.connect(db)
+    con.execute("CREATE TABLE images (image_id INTEGER, name TEXT)")
+    con.executemany("INSERT INTO images VALUES (?, ?)",
+                    [(i + 1, n) for i, n in enumerate(names)])
+    con.commit()
+    con.close()
+    t0 = time.perf_counter()
+    w2c = CT.load_sfm_log(os.path.join(tnt, "Barn_COLMAP_SfM.log"), names)
+    CT.write_init_model(w2c, db, os.path.join(tnt, "sparse"))
+    init_s = time.perf_counter() - t0
+    with open(os.path.join(tnt, "sparse", "images.txt")) as f:
+        rows = [ln.split() for ln in f if ln.strip()]
+    worst = 0.0
+    for row, want in zip(rows, w2c_true):
+        R = qvec_to_rotmat(np.array([float(v) for v in row[1:5]]))
+        worst = max(worst, float(np.abs(R - want[:3, :3]).max()),
+                    float(np.abs(np.array([float(v) for v in row[5:8]])
+                                 - want[:3, 3]).max()))
+    if len(rows) != n_views or [r[-1] for r in rows] != names or worst > 1e-9:
+        raise AssertionError(f"init model: {len(rows)} rows, {worst}")
+
+    gated = {}
+    for tool, argv in (("convert_tnt", ["--source", tnt, "--scene", "Barn",
+                                        "--run_colmap"]),
+                       ("convert_colmap", ["--source", scene])):
+        try:
+            run_tool(tool, argv + ["--colmap_executable",
+                                   os.path.join(root, "no_colmap")])
+        except SystemExit as e:
+            gated[tool] = str(e)
+        if "colmap binary not found" not in gated.get(tool, ""):
+            raise AssertionError(f"{tool} ran without colmap")
+    with_mpl = importlib.util.find_spec("matplotlib") is not None
+    try:
+        run_tool("visualize_cameras", ["--source", scene])
+        drawn = "drawn"
+    except SystemExit as e:
+        drawn = str(e)
+    if with_mpl != os.path.exists(os.path.join(scene, "poses.png")) or (
+            not with_mpl and "matplotlib" not in drawn):
+        raise AssertionError(f"visualize_cameras: {drawn}")
+    return dict(convert_dtu_s=dtu_s, stl_points=n_stl,
+                convert_360_s=m360_s, convert_tnt_export_s=tnt_s,
+                convert_tnt_init_model_s=init_s,
+                init_model_max_err=worst, colmap_gated=gated,
+                visualize_cameras=drawn)
+
+
+def prep_census(device, trained_cfg, n=1_000_000, width=1600,
+                height=1200) -> dict:
+    """The entry census (tools.entry_stats) as ``python -m`` runs it on the
+    default device: bench.py's dtu_full population (``n`` Gaussians at
+    ``width`` x ``height``, scales 4x) and phase train's trained state over
+    its training views; the trained state's first view again on the CPU,
+    whose entry count and tile counts the card's must equal."""
+    import torch
+
+    from vcr_gaus_tpu_torch.tools import entry_stats as ES
+
+    printed = []
+    syn_s = run_tool("entry_stats", [
+        "--synthetic", "--n", str(n), "--cap", str(1 << 20), "--w",
+        str(width), "--h", str(height), "--scale_mult", "4.0"], printed)
+    syn = json.loads(printed[-1])
+    runs = {"dtu_full": syn}
+    trained_s = None
+    if trained_cfg is not None:
+        trained_s = run_tool("entry_stats", ["--cfg_path", trained_cfg],
+                             printed)
+        runs["trained"] = json.loads(printed[-1])
+    for name, c in runs.items():
+        occ = c["tile_occupancy"]
+        if (c["n_cams"] < 1 or c["entries_peak"] < c["entries_mean"] <= 0
+                or not occ["p50"] <= occ["p90"] <= occ["p99"] <= occ["p100"]
+                or c["tile"] != 16 or c["device"] != str(device)
+                or not c["entry_budget"].startswith("not applicable")):
+            raise AssertionError(f"census {name}: {c}")
+    if syn["active"] != n or syn["n_cams"] != 8 or syn["tile_grid"] != [
+            -(-width // 16), -(-height // 16)]:
+        raise AssertionError(f"census dtu_full: {syn}")
+    cpu_check = None
+    if trained_cfg is not None:
+        state, cams, _, (w, h) = ES.trained_population(trained_cfg, -1,
+                                                       device)
+        ne, tc, rad, vis = ES.camera_census(state, cams[0], w, h)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ES.camera_census(state, cams[0], w, h)
+        torch.cuda.synchronize()
+        view_ms = 1e3 * (time.perf_counter() - t0)
+        cstate, ccams, _, _ = ES.trained_population(trained_cfg, -1, "cpu")
+        cne, ctc, crad, cvis = ES.camera_census(cstate, ccams[0], w, h)
+        cpu_check = dict(entries=ne, entries_cpu=cne,
+                         tiles_differing=int((tc != ctc).sum()),
+                         radii_differing=int((rad != crad).sum()),
+                         visible=vis, visible_cpu=cvis,
+                         census_ms_one_view=view_ms)
+        # the projection's rounding may move a Gaussian's extent across a
+        # tile edge on one device and not the other
+        if (tc.sum() != ne or ctc.sum() != cne
+                or np.abs(tc - ctc).sum() > 1e-4 * cne):
+            raise AssertionError(f"census card against CPU: {cpu_check}")
+    emit(phase="census", synthetic_s=syn_s, trained_s=trained_s,
+         cpu_check=cpu_check, **runs)
+    return runs
+
+
 def phase_prep(device, width=1600, height=1200, n_views=49,
-               n_points=100_000, n_cpu_views=6, timing_iters=10) -> dict:
+               n_points=100_000, n_cpu_views=6, timing_iters=10,
+               n_stl=2_000_000, trained_cfg=None, census_n=1_000_000,
+               census_width=1600, census_height=1200) -> dict:
     """Phase prep: a scene prepared by the data-preparation tools, each
     run as ``python -m`` runs it on the default device: make_meta in its
-    three modes (the last with a train/test split), extract_priors' normals
+    three modes (the last with a train/test split), the scene converters
+    (``prep_converters``), extract_priors' normals
     from depth (held against the tool on the CPU, up to f16 rounding) and
     all-foreground masks, convert_lpips on the placeholder weights split
     into a vgg and a lin file (with its self-test; LPIPS of the result
     equal to the placeholder's on a full-size pair); then the scene loads
-    with a normal prior on every view."""
+    with a normal prior on every view. Last the entry census
+    (``prep_census``) of the dtu_full population and of phase train's run
+    (``trained_cfg``)."""
     import torch
     from PIL import Image
 
@@ -3369,6 +3580,7 @@ def phase_prep(device, width=1600, height=1200, n_views=49,
         m = meta()
         if not np.allclose(m["trans"], want, atol=1e-6):
             raise AssertionError(f"pose centre {m['trans']}, want {want}")
+        converters = prep_converters(root, scene, n_views, n_stl, m)
         meta_s["points"] = run_tool("make_meta", [
             "--source", scene, "--mode", "points", "--split_ratio", "0.9"])
         m = meta()
@@ -3479,8 +3691,10 @@ def phase_prep(device, width=1600, height=1200, n_views=49,
          normals_share_off_by_one_ulp=n_off / n_vals, masks_s=masks_s,
          convert_lpips_s=convert_s, lpips_converted=d_conv,
          lpips_placeholder=d_ph, placeholder_heads_nonnegative=heads_nonneg,
-         load_scene_s=load_s, phase_s=phase_s)
-    return dict(phase_s=phase_s)
+         load_scene_s=load_s, converters=converters, phase_s=phase_s)
+    census = prep_census(device, trained_cfg, census_n, census_width,
+                         census_height)
+    return dict(phase_s=phase_s, census=census)
 
 
 def main() -> int:
@@ -3515,13 +3729,16 @@ def main() -> int:
     if sl["launches"] != 8:
         raise AssertionError(f"rasterize_fwd launched {sl['launches']} times "
                              "on the render path, expected one per view")
-    tr = phase_train(device)
-    hl = phase_host_loop(device)
-    mp = phase_microprobe(device)
-    ms = phase_mesh(device)
-    tnt = phase_train_tnt(device)
-    ev = phase_eval_tnt(device)
-    phase_prep(device)
+    # phase train's run stays on disk until phase prep's census has read it
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as kept:
+        tr = phase_train(device, workdir=kept)
+        hl = phase_host_loop(device)
+        mp = phase_microprobe(device)
+        ms = phase_mesh(device)
+        tnt = phase_train_tnt(device)
+        ev = phase_eval_tnt(device)
+        phase_prep(device, trained_cfg=tr["cfg_path"])
     # launches: each kernel's count on the main path of the slice that
     # brought it (the training run for K1 and K2, the host loop's run for
     # K3, the microprobe's entry point for K4), and K1's on the mesh path

@@ -78,7 +78,10 @@ def test_walk_imports_the_runners_without_side_effects(tmp_path):
                 "utils.render_paths", "evaluation.tnt_official",
                 "tools.run_scannetpp", "parallel.dp",
                 "render.network_gui", "render.orbit", "tools.make_meta",
-                "tools.extract_priors", "tools.convert_lpips"):
+                "tools.extract_priors", "tools.convert_lpips",
+                "tools.convert_dtu", "tools.convert_tnt",
+                "tools.convert_360", "tools.convert_colmap",
+                "tools.visualize_cameras", "tools.entry_stats"):
         assert f"'vcr_gaus_tpu_torch.{mod}'" in names, mod
     assert side == "'' []"
 
@@ -143,3 +146,93 @@ def test_prep_tools_run_without_jax(tmp_path):
     with np.load(scene / "normals" / "img_000.npz") as z:
         assert z["arr_0"].dtype == np.float16
     assert np.asarray(Image.open(scene / "masks" / "img_000.png")).min() == 1
+
+
+def test_converters_run_without_jax(tmp_path):
+    """convert_dtu, convert_tnt (--export_json, and --run_colmap stopping
+    at the missing binary), convert_360, convert_colmap (stopping at the
+    missing binary), visualize_cameras (where matplotlib is installed) and
+    entry_stats (--synthetic and --cfg_path) through ``runpy`` as ``python
+    -m`` runs them, in a process where importing jax or the JAX package
+    raises."""
+    import importlib.util
+
+    import numpy as np
+
+    from fixtures import write_colmap_scene
+    from vcr_gaus_tpu_torch.config import Config
+    from vcr_gaus_tpu_torch.models import gaussians as GM
+    from vcr_gaus_tpu_torch.models.ply_io import save_gaussian_ply
+    from vcr_gaus_tpu_torch.utils.ply import write_points_ply
+    rng = np.random.default_rng(0)
+    dtu = tmp_path / "dtu"
+    (dtu / "scan1" / "images").mkdir(parents=True)
+    (dtu / "Points" / "stl").mkdir(parents=True)
+    write_points_ply(str(dtu / "Points" / "stl" / "stl001_total.ply"),
+                     rng.normal(size=(300, 3)))
+    from PIL import Image
+    for i in (0, 8):
+        Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(
+            dtu / "scan1" / "images" / f"{i:06d}.png")
+    tnt = tmp_path / "Barn"
+    tnt.mkdir()
+    write_points_ply(str(tnt / "Barn.ply"), rng.normal(size=(500, 3)))
+    (tnt / "Barn_trans.txt").write_text("\n".join(
+        " ".join(str(float(v)) for v in row) for row in np.eye(4)))
+    scenes = tmp_path / "m360"
+    write_colmap_scene(str(scenes / "garden"), n_cams=3, n_pts=80,
+                       width=24, height=16)
+    scene = scenes / "garden"
+    run = tmp_path / "run"
+    cfg = Config(os.path.join(REPO, "configs", "dtu", "base.yaml"),
+                 overrides=[f"--model.source_path={scene}"])
+    cfg.save(str(run / "config.yaml"))
+    state = GM.create_from_pcd(rng.uniform(-1, 1, (200, 3)),
+                               rng.uniform(size=(200, 3)), 256, 3,
+                               device="cpu")
+    ply = run / "point_cloud" / "iteration_2" / "point_cloud.ply"
+    ply.parent.mkdir(parents=True)
+    save_gaussian_ply(state, str(ply))
+    no_colmap = str(tmp_path / "no_colmap")
+    runs = [("convert_dtu", ["--dtu_path", str(dtu), "--device", "cpu"]),
+            ("convert_tnt", ["--source", str(tnt), "--scene", "Barn",
+                             "--export_json", "--device", "cpu"]),
+            ("convert_tnt", ["--source", str(tnt), "--scene", "Barn",
+                             "--run_colmap", "--colmap_executable",
+                             no_colmap]),
+            ("convert_360", ["--data_path", str(scenes)]),
+            ("convert_colmap", ["--source", str(scene),
+                                "--colmap_executable", no_colmap]),
+            ("entry_stats", ["--synthetic", "--n", "500", "--cap", "512",
+                             "--w", "64", "--h", "48", "--device", "cpu"]),
+            ("entry_stats", ["--cfg_path", str(run / "config.yaml"),
+                             "--device", "cpu"])]
+    with_mpl = importlib.util.find_spec("matplotlib") is not None
+    if with_mpl:
+        runs.append(("visualize_cameras", ["--source", str(scene)]))
+    code = BLOCKER + (
+        "import runpy\n"
+        f"for tool, argv in {runs!r}:\n"
+        "    sys.argv = [tool] + argv\n"
+        "    try:\n"
+        "        runpy.run_module('vcr_gaus_tpu_torch.tools.' + tool,\n"
+        "                         run_name='__main__', alter_sys=True)\n"
+        "    except SystemExit as e:\n"
+        "        print('exit', tool, e)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'vcr_gaus_tpu', 'cv2', 'open3d', 'trimesh'))\n"
+        "print('loaded', bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = res.stdout
+    assert "loaded []" in out
+    assert out.count("exit") == 2
+    assert out.count("colmap binary not found") == 2
+    assert "[meta] scan1" in out and "wrote meta.json:" in out
+    for path in (dtu / "scan1", tnt, scene):
+        assert os.path.exists(path / "meta.json"), path
+    assert out.count('"tile": 16') == 2
+    assert os.path.exists(scene / "poses.png") == with_mpl

@@ -14,12 +14,15 @@ into a full +-lr step of either sign, and the two runs' rendered depth
 then parts by 1e-2 within three steps. The JAX Trainer runs its
 single-step path (tpu.steps_per_call 1) with tile 16, in interpret mode
 on the CPU. Per step every loss at rtol 1e-4, and mono_depth's inputs and
-function on their own; the side networks after the run at atol 1e-5; the
+function on their own; the side networks after every step, each step
+from the JAX Trainer's state, at atol 1e-5 but for Adam's rounding noise
+(a ReLU whose sign rounding decides parts the free-running runs); the
 camera draws equal; a densify from one state with its active mask and
 drop count exactly equal; mIoU at 1e-6; the writer's tags; the saves,
 model.pkl and the checkpoints of both packages.
 """
 
+import copy
 import json
 import os
 import pickle
@@ -33,7 +36,7 @@ import torch
 from PIL import Image
 
 from fixtures import write_colmap_scene
-from test_torch_camera_batch import anisotropic
+from test_torch_camera_batch import anisotropic, steps_close_but_noise
 from test_torch_host_loop import RecordingRandom
 from test_torch_train import assert_state_close, jax_state_arrays
 from vcr_gaus_tpu.config import Config as JConfig
@@ -155,16 +158,97 @@ def recording_depth_loss(monkeypatch, record):
                         port_loss)
 
 
+def host_net(net) -> dict:
+    """The JAX Trainer's side networks as numpy (its NetState fields)."""
+    return jax.tree.map(np.asarray, net._asdict())
+
+
+def record_steps(jtr, ptr, steps):
+    """Wrap both trainers' steps to keep, per step, what a replay needs:
+    the JAX Trainer's Gaussians and side networks before its step and its
+    side networks after it (``steps["jax"]``); the port's step arguments
+    and its side networks before and after (``steps["port"]``), and the
+    port's step itself (``steps["step_fn"]``)."""
+    jstep, pstep = jtr.train_step, ptr.step_fn
+
+    def jax_step():
+        before = (jtr.state, host_net(jtr.net))
+        out = jstep()
+        steps["jax"].append((*before, host_net(jtr.net)))
+        return out
+
+    def port_step(state, cams, bg, lr_xyz, sh_degree, gates, nets):
+        before = nets.state_dict()
+        out = pstep(state, cams, bg, lr_xyz, sh_degree, gates, nets)
+        steps["port"].append(((state, cams, bg, lr_xyz, sh_degree, gates),
+                              before, nets.state_dict()))
+        return out
+
+    jtr.train_step, ptr.step_fn = jax_step, port_step
+    steps["step_fn"] = pstep
+
+
+def net_arrays(net: dict) -> dict:
+    """A side-network state (either package's fields, as numpy) in the
+    form ``steps_close_but_noise`` holds: every leaf of the embeddings, the
+    appearance network and the classifier under ``params``, their Adam
+    moments under ``mu`` and ``nu``, keyed by tree path."""
+    out = {"params": {}, "mu": {}, "nu": {}}
+    for tag, params, opt in (
+            ("app", (net["app_embeddings"], net["app_params"]),
+             net["app_opt"]),
+            ("cls", net["cls_params"], net["cls_opt"])):
+        adam = opt if isinstance(opt, dict) else opt[0]._asdict()
+        for group, tree in (("params", params), ("mu", adam["mu"]),
+                            ("nu", adam["nu"])):
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+                out[group][tag + jax.tree_util.keystr(path)] = np.asarray(
+                    leaf)
+    return out
+
+
+def replay_side_nets(ptr, steps, before, perturb=None):
+    """The port's recorded steps again, each on its own arguments (views,
+    background, learning rate, SH degree, gates) but from the Gaussians and
+    side networks ``before[i]`` (a port GaussianState and a side-network
+    dict), with the gradients the side networks' Adam takes first passed
+    through ``perturb``: the side networks after each step, as
+    ``net_arrays`` dicts."""
+    nets = copy.deepcopy(ptr.nets)
+    if perturb is not None:
+        adam_step = nets.step
+        nets.step = lambda grads: adam_step(perturb(grads))
+    out = []
+    for (args, _, _), (state, net) in zip(steps["port"], before):
+        nets.load_state_dict(net)
+        steps["step_fn"](state, *args[1:], nets)
+        out.append(net_arrays(nets.state_dict()))
+    return out
+
+
+def hold_side_nets(got_steps, want_steps):
+    """The side networks' rule (ROADMAP.md §3, F5): after each step, every
+    step from the same start, at atol 1e-5 (rtol 0) but for Adam's
+    rounding-noise elements of that step (``steps_close_but_noise``)."""
+    for it, (got, want) in enumerate(zip(got_steps, want_steps), 1):
+        try:
+            steps_close_but_noise([got], [want], tol=1e-5, rtol=0)
+        except AssertionError as e:
+            raise AssertionError(f"step {it}: {e}") from e
+
+
 @pytest.fixture(scope="module")
 def runs(scene_dir, tmp_path_factory):
     """Both trainers over the schedule from the same Gaussians
     (``anisotropic``: the init state with anisotropic scales and random
     rotations) and side networks, with recording generators and writers,
-    and the inputs of each step's mono_depth loss in both packages."""
+    the inputs of each step's mono_depth loss in both packages, and each
+    step's record (``record_steps``)."""
     jdir = tmp_path_factory.mktemp("jax_tnt")
     pdir = tmp_path_factory.mktemp("port_tnt")
     jcfg, cfg = configs(scene_dir, jdir, pdir)
     depth_inputs = {"jax": [], "port": []}
+    steps = {"jax": [], "port": []}
     with pytest.MonkeyPatch.context() as mp:
         recording_depth_loss(mp, depth_inputs)
         jtr = JT.Trainer(jcfg)
@@ -172,13 +256,13 @@ def runs(scene_dir, tmp_path_factory):
         assert_state_close(ptr.state, jtr.state)
         jtr.state = anisotropic(jtr)
         ptr.state = state_from_arrays(jax_state_arrays(jtr.state), "cpu")
-        ptr.nets.load_state_dict(jax.tree.map(np.asarray,
-                                              jtr.net._asdict()))
+        ptr.nets.load_state_dict(host_net(jtr.net))
         jtr.rng, ptr.rng = RecordingRandom(0), RecordingRandom(0)
         jtr._tb, ptr._tb = Writer(), Writer()
+        record_steps(jtr, ptr, steps)
         jtr.train(log_every=1)
         ptr.train(log_every=1)
-    return jtr, ptr, str(jdir), str(pdir), depth_inputs
+    return jtr, ptr, str(jdir), str(pdir), depth_inputs, steps
 
 
 def test_losses_match_jax_per_step(runs):
@@ -223,19 +307,72 @@ def test_depth_loss_and_its_inputs_match_jax(runs):
 
 
 def test_side_networks_match_jax(runs):
-    jtr, ptr = runs[:2]
-    want = jax.tree.map(np.asarray, jtr.net._asdict())
+    """The side networks after every step, each step the port's from the
+    JAX Trainer's Gaussians and side networks before it, at atol 1e-5 but
+    for Adam's rounding-noise elements (``hold_side_nets``). Free-running,
+    the two runs' side networks part from step 3 (ROADMAP.md §3, F5): one
+    ReLU of Conv_1 sits at +4.8e-9 in the port and -2.1e-8 in JAX on the
+    port's step-3 parameters, which moves the gradients above it by
+    1.5e-3 of their largest, and Adam (eps 1e-15) turns that into steps of
+    up to lr on elements whose first moments are 1e-6 of their leaf's
+    largest."""
+    jtr, ptr, steps = runs[0], runs[1], runs[5]
+    assert len(steps["jax"]) == len(steps["port"]) == ITERS
+    got = replay_side_nets(ptr, steps, [
+        (state_from_arrays(jax_state_arrays(js), "cpu"), net)
+        for js, net, _ in steps["jax"]])
+    hold_side_nets(got, [net_arrays(after) for _, _, after in steps["jax"]])
+    want = host_net(jtr.net)
     got = ptr.nets.state_dict()
-    for name in ("app_embeddings", "app_params", "cls_params"):
-        for a, b in zip(jax.tree.leaves(got[name]),
-                        jax.tree.leaves(want[name])):
-            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
     for name in ("app_opt", "cls_opt"):
         assert int(got[name]["count"]) == int(want[name][0].count) == ITERS
     # the embedding rows of the views trained moved, the others did not
     start = PLY.load_checkpoint(os.path.join(runs[3], "chkpnt3.npz"),
                                 "cpu")[2]["net"]["app_embeddings"]
     assert not np.array_equal(got["app_embeddings"], start)
+
+
+def perturb_ulp(seed):
+    """Moves every nonzero gradient element one float32 ulp up or down,
+    at random from ``seed``: another summation order's rounding."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def perturb(grads):
+        out = []
+        for g in grads:
+            up = torch.rand(g.shape, generator=gen) < 0.5
+            moved = torch.nextafter(g, torch.where(
+                up, torch.full_like(g, np.inf), torch.full_like(g, -np.inf)))
+            out.append(torch.where(g == 0, g, moved))
+        return out
+    return perturb
+
+
+def flip_one_leaf(grads):
+    """A real fault: the sign of one leaf's gradient (Conv_0's kernel)."""
+    return [-g if g.dim() == 4 and g.shape[0] == 256 else g for g in grads]
+
+
+@pytest.mark.parametrize("fault", ["ulp0", "ulp1", "ulp2", "sign_flip"])
+def test_side_network_rule_tolerates_rounding_catches_faults(runs, fault):
+    """The side networks' rule on the port alone: the port's own steps
+    replayed from its own Gaussians and side networks before each step,
+    with the side networks' gradients moved by one ulp (another host's
+    summation order, three seeds) or with one leaf's gradient negated.
+    The rule holds the first and refuses the second."""
+    ptr, steps = runs[1], runs[5]
+    before = [(args[0], net) for args, net, _ in steps["port"]]
+    want = [net_arrays(after) for _, _, after in steps["port"]]
+    assert len(want) == ITERS
+    hold_side_nets(replay_side_nets(ptr, steps, before), want)
+    perturb = (flip_one_leaf if fault == "sign_flip"
+               else perturb_ulp(int(fault[-1])))
+    got = replay_side_nets(ptr, steps, before, perturb)
+    if fault == "sign_flip":
+        with pytest.raises(AssertionError, match=r"\['Conv_0'\]\['kernel'\]"):
+            hold_side_nets(got, want)
+    else:
+        hold_side_nets(got, want)
 
 
 def test_camera_draws_match_jax(runs):

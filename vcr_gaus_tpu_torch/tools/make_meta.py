@@ -52,6 +52,17 @@ def bound_by_pose(images):
     return center, np.full(3, radius)
 
 
+def box_meta(pts: np.ndarray, device) -> tuple[np.ndarray, np.ndarray]:
+    """(4x4 transform into the points' PCA box, per-axis half-extents
+    times 1.2); the box by ``evaluation.geometry.pca_obb`` on ``device``."""
+    from ..evaluation.geometry import pca_obb
+    R, t = pca_obb(pts, device)
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    return T, np.abs(pts @ R.T + t).max(0) * 1.2
+
+
 def main(argv: list[str] | None = None) -> dict:
     """Writes ``<source>/meta.json`` and returns its contents."""
     ap = argparse.ArgumentParser()
@@ -64,7 +75,6 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     from ..data.scene import bound_by_points
-    from ..evaluation.geometry import pca_obb
     from ..utils import colmap as CM
     from ..utils.device import resolve_device
 
@@ -88,13 +98,9 @@ def main(argv: list[str] | None = None) -> dict:
             meta["trans"] = trans.tolist()
             meta["scale"] = scale.tolist()
         else:
-            R, t = pca_obb(xyz, device)
-            T = np.eye(4)
-            T[:3, :3] = R
-            T[:3, 3] = t
-            aligned = xyz @ R.T + t
+            T, scale = box_meta(xyz, device)
             meta["trans"] = T.tolist()
-            meta["scale"] = (np.abs(aligned).max(0) * 1.2).tolist()
+            meta["scale"] = scale.tolist()
 
     if args.split_ratio > 0:
         images = CM.read_images_binary(os.path.join(colmap_dir, "images.bin"))
