@@ -1,0 +1,11 @@
+"""Device ms a step of the kernels launched inside ``render.binning``:
+the entry expansion and the sort."""
+
+
+def span_ms(run, span):
+    ms, n = run.trace.device_ms(span=span)
+    return ms / run.steps if n else None
+
+
+def read(run):
+    return span_ms(run, lambda s: s == "render.binning")
