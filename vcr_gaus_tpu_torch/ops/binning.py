@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
+
 TILE = 16
 
 
@@ -70,9 +72,12 @@ def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
     count = torch.where(alive, span_w * span_h, 0).to(torch.int64)
     offsets = torch.cumsum(count, 0) - count
 
-    # expansion in gaussian order, row-major within each rect
-    gid = torch.repeat_interleave(torch.arange(n, device=dev), count)
-    e = gid.shape[0]
+    # expansion in gaussian order, row-major within each rect; the entry
+    # count sizes it, the one wait on the device in binning
+    with tracing.span("render.binning.readback"):
+        e = int(count.sum())
+    gid = torch.repeat_interleave(torch.arange(n, device=dev), count,
+                                  output_size=e)
     slot = torch.arange(e, device=dev) - offsets[gid]
     sw = span_w.clamp_min(1).to(torch.int64)[gid]
     sy = torch.div(slot, sw, rounding_mode="floor")
@@ -92,5 +97,5 @@ def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
         sorted_gid=gid[order].to(torch.int32),
         tile_starts=tile_starts.to(torch.int32),
         tile_counts=tile_counts.to(torch.int32),
-        num_entries=int(e),
+        num_entries=e,
         overflow=False)

@@ -32,8 +32,8 @@ from collections import Counter
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
+from ..utils import tracing
 from . import binning as B
 from . import cuda_build
 from . import projection as PF
@@ -468,7 +468,7 @@ class _Composite(torch.autograd.Function):
         feats, cam, img, batches, gid, starts, counts = ctx.saved_tensors
         num_entries, width, height, ch_sem, depth_mode = ctx.meta
         binn = B.Binning(gid, starts, counts, num_entries, False)
-        with record_function("render.composite_backward"):
+        with tracing.span("render.composite_backward"):
             grad = rasterize_backward(feats, binn, cam, img,
                                       g_img.contiguous(), batches, width,
                                       height, ch_sem, depth_mode)
@@ -486,10 +486,11 @@ def rasterize_image(feats: torch.Tensor, dummy: torch.Tensor,
     zeros whose gradient is the |d mean2d| stream. Returns (img (9+S, H, W),
     Binning): rgb (3, bg-blended), normal (3), sum w*d, sum w*d^2, alpha,
     sem (S)."""
-    with record_function("render.binning"):
+    with tracing.span("render.binning"):
         binn = B.bin_gaussians(mean2d, radius, depth_z, width, height,
                                extents=extents)
-    with record_function("render.composite"):
+    tracing.count("render.entries", binn.num_entries)
+    with tracing.span("render.composite"):
         img, _ = _Composite.apply(feats, dummy, binn, cam, width, height,
                                   ch_sem, depth_mode)
     return img, binn
@@ -586,9 +587,9 @@ def rasterize_entry_stats(feats: torch.Tensor, mean2d: torch.Tensor,
     """Bin, then the stats kernel: per Gaussian (count (N,), importance
     (N,)), the f_count render modes of the reference collapsed into one
     kernel."""
-    with record_function("render.binning"):
+    with tracing.span("render.binning"):
         binn = B.bin_gaussians(mean2d, radius, depth_z, width, height,
                                extents=extents)
-    with record_function("render.stats"):
+    with tracing.span("render.stats"):
         stats = rasterize_stats(feats, binn, width, height)
     return stats[:, 0], stats[:, 1]

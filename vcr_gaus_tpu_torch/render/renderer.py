@@ -10,7 +10,6 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..data.cameras import CameraArrays
 from ..models.gaussians import GaussianState
@@ -19,6 +18,7 @@ from ..ops import rasterize as R
 from ..train import losses as L
 from ..utils import graphics as G
 from ..utils import sh as SH
+from ..utils import tracing
 from ..utils.math import safe_normalize
 
 
@@ -46,9 +46,9 @@ def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
     Runs on the device of the state's tensors and is differentiable in the
     state's parameters through torch.autograd; differentiate with respect
     to ``densify_dummy`` (zeros) for the |d mean2d| stream."""
-    # spans read by torch.profiler (chip_smoke.py's phase "profile"); a
-    # record_function costs nothing measurable when no profiler runs
-    with record_function("render.project"):
+    # spans read by torch.profiler (the benchmark's readers, chip_smoke.py's
+    # phase "profile"); with no profiler a span is one check (utils/tracing)
+    with tracing.span("render.project"):
         p = state.params
         xyz = p.xyz
         opacity = state.opacity[:, 0]
@@ -82,7 +82,7 @@ def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
                                   proj.depth_z, cam_vec, cfg.width, cfg.height,
                                   cfg.ch_sem, cfg.depth_mode, extents=proj.ext)
 
-    with record_function("render.post"):
+    with tracing.span("render.post"):
         wd_sum, wd2_sum, alpha = img[6], img[7], img[8]
         depth = wd_sum                      # alpha-weighted depth
         # camera foreground mask AND depth-threshold mask; a camera without a
@@ -122,7 +122,7 @@ def render_stats(state: GaussianState, cam: CameraArrays, cfg: RenderConfig):
     """Per-Gaussian (pixel hit count (C,), blending-weight importance (C,))
     over one view: projection with zero colour and no normal, inactive slots
     culled, binning, the stats kernel."""
-    with record_function("render.project"):
+    with tracing.span("render.project"):
         p = state.params
         opacity = state.opacity[:, 0]
         proj = PF.project_gaussians(

@@ -47,7 +47,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..compat.arguments import write_cfg_args
 from ..data.box_cameras import sample_box_cameras
@@ -60,6 +59,7 @@ from ..parallel import dp as DP
 from ..render.network_gui import NetworkGUI
 from ..render.renderer import RenderConfig, render, render_stats
 from ..utils import math as M
+from ..utils import tracing
 from ..utils.device import resolve_device
 from . import losses as L
 from . import visualization as VZ
@@ -195,7 +195,7 @@ def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
                              scene_extent=scene_extent, densify_dummy=dummy,
                              classifier=(nets.cls if nets is not None
                                          else None))
-                with record_function("train.losses"):
+                with tracing.span("train.losses"):
                     total, losses_i = compute_losses(
                         out, cam, st, weights, gates, cfg, inside_mask,
                         nets, num_cls)
@@ -221,7 +221,7 @@ def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
             grads = [g * inv for g in grads]
             losses = {k: v * inv for k, v in losses.items()}
         if distributed:
-            with record_function("train.all_reduce"):
+            with tracing.span("train.all_reduce"):
                 names = list(losses)
                 reduced = DP.reduce_mean(grads + [losses[k] for k in names])
                 grads = reduced[:len(grads)]
@@ -229,11 +229,11 @@ def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
                 radii, visibility, num_entries = DP.reduce_max(
                     radii, visibility, num_entries)
         if nets is not None:
-            with record_function("train.side_nets"):
+            with tracing.span("train.side_nets"):
                 nets.step(grads[n_gauss:])
         grads = grads[:n_gauss]
         g_params = GM.GaussianParams(*grads[:-1])
-        with record_function("train.adam"), torch.no_grad():
+        with tracing.span("train.adam"), torch.no_grad():
             g_params = GM.mask_grads(g_params, state.active)
             lrs = GM.LearningRates(
                 xyz=lr_xyz, f_dc=o.feature_lr, f_rest=o.feature_lr / 20.0,
@@ -479,21 +479,27 @@ class Trainer:
 
     def train_step(self):
         """One iteration: this rank's share of the step's camera batch
-        (all of it on one process), then the host actions."""
-        self._maybe_enable_debug()
-        self.iteration += 1
-        idxs = self._pick_camera_batch()
-        share = len(idxs) // self.world_size
-        mine = idxs[self.rank * share:(self.rank + 1) * share]
-        cams = [self.scene.train_cameras[i].arrays(self.device)
-                for i in mine]
-        bg = (np.random.default_rng(self.iteration).random(3).astype(
-            np.float32) if self.cfg.optim.random_background else self.bg)
-        self.state, losses, aux = self.step_fn(
-            self.state, cams, torch.as_tensor(bg, device=self.device),
-            self._lr_xyz(), self._sh_degree(), self._gates(), self.nets)
-        self._post_step_actions()
-        self._debug_check(losses)
+        (all of it on one process), then the host actions. Under a profiler
+        the ``train.step`` span holds it all and ``train.upload`` the views'
+        and the background's copies to the device."""
+        with tracing.step(self.iteration + 1, self.device):
+            self._maybe_enable_debug()
+            self.iteration += 1
+            idxs = self._pick_camera_batch()
+            share = len(idxs) // self.world_size
+            mine = idxs[self.rank * share:(self.rank + 1) * share]
+            with tracing.span("train.upload"):
+                cams = [self.scene.train_cameras[i].arrays(self.device)
+                        for i in mine]
+                bg = (np.random.default_rng(self.iteration).random(3).astype(
+                    np.float32) if self.cfg.optim.random_background
+                    else self.bg)
+                bg = torch.as_tensor(bg, device=self.device)
+            self.state, losses, aux = self.step_fn(
+                self.state, cams, bg, self._lr_xyz(), self._sh_degree(),
+                self._gates(), self.nets)
+            self._post_step_actions()
+            self._debug_check(losses)
         return losses, aux
 
     def train(self, max_iters: int | None = None, log_every: int = 50):
@@ -506,7 +512,7 @@ class Trainer:
         self._t0 = time.time()
         pending = []
         while self.iteration < max_iters:
-            with record_function("train.gui"):
+            with tracing.span("train.gui"):
                 self._gui_pump()
             losses, _ = self.train_step()
             pending.append((self.iteration, losses,
@@ -626,8 +632,7 @@ class Trainer:
             if it % o.opacity_reset_interval == 0 or (
                     self.cfg.model.white_background
                     and it == o.densify_from_iter):
-                with record_function("train.reset_opacity"):
-                    self.state = GM.reset_opacity(self.state)
+                self.state = GM.reset_opacity(self.state)
                 self._log_action("reset opacity")
         if it in list(o.prune.iterations):
             self.light_gaussian_prune(list(o.prune.iterations).index(it))
@@ -648,7 +653,7 @@ class Trainer:
         at the same iterations."""
         o = self.cfg.optim
         n_before = self.state.num_active
-        with record_function("train.densify"):
+        with tracing.span("train.densify"):
             box_mask = self._box_densify_mask()
             prev = self._pending_dropped
             self.state, dropped = GM.densify_and_prune(
@@ -670,7 +675,7 @@ class Trainer:
         rcfg = self.rcfg if rcfg is None else rcfg
         count = torch.zeros(self.state.capacity, device=self.device)
         imp = torch.zeros_like(count)
-        with record_function("train.stats_sweep"):
+        with tracing.span("train.stats_sweep"):
             for cam in cams:
                 c, i = render_stats(self.state, cam, rcfg)
                 count += c
@@ -725,7 +730,7 @@ class Trainer:
         the lowest decay^round x percent of the population goes."""
         o = self.cfg.optim.prune
         n_before = self.state.num_active
-        with record_function("train.prune"):
+        with tracing.span("train.prune"):
             _, imp = self._stats_sweep(self._full_stats_cams())
             v = GM.v_imp_score(self.state, imp, float(o.v_pow))
             self.state = GM.prune_by_importance(
