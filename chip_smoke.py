@@ -16,6 +16,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              gradients, each column group (mean, conic, opacity, depth,
              plane, normal, rgb, sem, |d mean2d|) at atol 2e-3 times its
              own max|g| and rtol 2e-3 (5e-2 in the saturated scene);
+             then the preprocess pair (csrc/preprocess.cu) against its
+             plain versions at every variant (SH degree 0..3 or none, 0
+             or 2 semantic channels, normals on or off, 3,000 slots that
+             reach each branch): radius and extents exactly, the packed
+             features at the forward tolerance, each leaf's gradient at
+             atol 1e-5 times its max|g| in each group of slots (visible,
+             culled near tz = 0, culled in front of the near plane, other
+             culled); then the same check, and both kernels' times, byte
+             bounds and the plain eager chain's times, at DTU's 2^20 slots
+             on 1600x1200 and TNT's 2^22 on 1600x900;
   3. slice   the render path at full width: a synthetic COLMAP scene of 8
              1600x1200 views and a 1M-Gaussian SH-degree-3 PLY, rendered and
              scored by vcr_gaus_tpu_torch.render_eval.main with
@@ -202,6 +212,10 @@ DENSIFY_CAPTURES = {0: "densify_20", 30: "densify_30"}
 PROBE = dict(atol=2e-4, rtol=1e-3)
 BWD = dict(rtol=2e-3)              # and atol 2e-3 max|g| per column group
 BWD_SATURATED = dict(rtol=5e-2)    # tests/test_rasterize.py:432
+# the preprocess backward against its plain version: atol this times the
+# leaf's max|g| in each group of slots (compare_preprocess), about twenty
+# times the largest error the card has shown
+PRE_BWD_ATOL = 1e-5
 # bench.py's dtu_full weights: the DTU recipe with every gate open
 DTU_FULL_WEIGHTS = {"l1": 0.8, "ssim": 0.2, "mono_normal": 0.01,
                     "l1_scale": 0.5, "consistent_normal": 0.05,
@@ -416,8 +430,201 @@ def worst_error(groups) -> float:
     return max((err for err, _ in groups.values()), default=0.0)
 
 
-def phase_kernel(device) -> tuple[float, float, float]:
-    """Phase 2; returns the largest forward, backward and stats errors."""
+def preprocess_scene(n=400, seed=0, identity=True, k_rest=15, s_obj=2,
+                     width=64, height=48, dtype=None):
+    """(leaves, active, cam) of ``n`` slots for the renderer's preprocess,
+    as CPU tensors of ``dtype`` (default float32), whose camera-space means
+    and parameters reach each of its branches: visible splats; means at z
+    <= 0.2 (culled at the near plane) and at z = 0 (tz_safe; exactly 0 with
+    the identity rotation); means outside the 1.3 tanfov clamp on either
+    axis; opacity at or below 1/255; two or three equal smallest scales;
+    colours below -0.5 before the clamp; and 40 inactive padding slots of
+    zeros (a zero quaternion) at the end. The camera looks through a
+    random rotation unless ``identity``."""
+    import torch
+
+    from vcr_gaus_tpu_torch.data.cameras import Camera
+    from vcr_gaus_tpu_torch.models.gaussians import GaussianParams
+    from vcr_gaus_tpu_torch.ops import projection as PF
+
+    rng = np.random.default_rng(seed)
+    rot = np.eye(3)
+    if not identity:
+        rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        rot *= np.sign(np.linalg.det(rot))
+    arr = Camera(colmap_id=0, idx=0, image_name="v", R=rot,
+                 T=np.array([0.25, -0.5, 0.75]), fovx=0.9, fovy=0.7,
+                 width=width, height=height).arrays("cpu", pixels=False)
+    tfx, tfy = float(arr.tanfov[0]), float(arr.tanfov[1])
+
+    z = rng.uniform(1.0, 5.0, n)
+    pc = np.stack([rng.uniform(-0.9, 0.9, n) * tfx * z,
+                   rng.uniform(-0.9, 0.9, n) * tfy * z, z], 1)
+    idx = rng.permutation(n - 40)
+    near, zero, out_x, out_y = np.split(idx[:60], 4)
+    pc[near, 2] = rng.uniform(-1.0, 0.2, near.size)
+    pc[zero, 2] = 0.0
+    pc[out_x, 0] = (rng.choice([-1, 1], out_x.size) * pc[out_x, 2] * tfx
+                    * rng.uniform(1.4, 3.0, out_x.size))
+    pc[out_y, 1] = (rng.choice([-1, 1], out_y.size) * pc[out_y, 2] * tfy
+                    * rng.uniform(1.4, 3.0, out_y.size))
+    V = arr.viewmatrix.double().numpy()
+    xyz = (pc - V[3, :3]) @ np.linalg.inv(V[:3, :3])
+    if identity:
+        # x_cam = x_w + T exactly: these means land on tz = 0
+        xyz[zero, 2] = -V[3, 2]
+
+    log_scale = rng.normal(-2.5, 0.6, (n, 3))
+    ties = idx[60:100]
+    log_scale[ties[:20], 1] = log_scale[ties[:20], 0] - 0.3
+    log_scale[ties[:20], 2] = log_scale[ties[:20], 1]
+    log_scale[ties[20:], :] = log_scale[ties[20:], :1]
+    logit_op = rng.normal(0.0, 2.0, (n, 1))
+    logit_op[idx[100:130]] = rng.uniform(-9.0, -5.55, (30, 1))
+    quat = rng.normal(size=(n, 4))
+    f_dc = rng.normal(0.0, 1.5, (n, 1, 3))
+    f_rest = rng.normal(0.0, 0.4, (n, k_rest, 3))
+    obj = rng.normal(size=(n, 1, s_obj))
+    active = np.ones(n, bool)
+    for a in (xyz, log_scale, logit_op, quat, f_dc, f_rest, obj):
+        a[n - 40:] = 0.0
+    active[n - 40:] = False
+
+    dtype = torch.float32 if dtype is None else dtype
+    lv = GaussianParams(*(torch.tensor(a, dtype=dtype) for a in
+                          (xyz, f_dc, f_rest, log_scale, quat, logit_op, obj)))
+    return lv, torch.tensor(active), PF.camera_vector(arr).to(dtype)
+
+
+def compare_preprocess(lv, active, cam, var, device, seed=0) -> dict:
+    """The preprocess kernels against their plain versions on ``device``:
+    the radius and the extents exactly equal, the packed features at the
+    forward tolerance (binning's mean2d and depth equal to their columns),
+    and each leaf's gradient of a seeded random feature
+    gradient (read as the first 14+S columns of a (C, 16+S) matrix, as K2
+    gives it) at atol ``PRE_BWD_ATOL`` times the leaf's own max|g| in each
+    group of slots: those with a radius, and of the culled ones those whose
+    camera depth is within 1e-3 of 0 (their gradients go through tz_safe
+    or 1/tz^2 and are many orders larger), the others in front of the near
+    plane, and those behind it (outside the image or the tanfov clamp, or
+    too faint). Returns the
+    features' largest error and, per leaf and group, [largest error,
+    max|g|]."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import projection as PF
+
+    lv = lv.map(lambda x: x.to(device))
+    active, cam = active.to(device), cam.to(device)
+    got = PF.preprocess_forward(lv, active, cam, var)
+    want = PF.preprocess_torch(lv, active, cam, var)
+    feats, w_feats, w_radius = got.feats, want.feats, want.radius
+    bad_r = int((got.radius != w_radius).sum())
+    bad_e = int((got.ext != want.ext).any(dim=1).sum())
+    if bad_r or bad_e:
+        raise AssertionError(f"{bad_r} radii and {bad_e} extents differ from "
+                             "the plain version")
+    torch.testing.assert_close(feats, w_feats, **FWD)
+    # binning's mean2d and depth, written apart, are the packed columns
+    if not (torch.equal(got.mean2d, feats[:, PF.F_MEAN_X:PF.F_MEAN_Y + 1])
+            and torch.equal(got.depth_z, feats[:, PF.F_DEPTH_Z])):
+        raise AssertionError("mean2d or depth_z differ from the features")
+    nf = PF.feature_dim(var.ch_sem)
+    g = torch.randn((feats.shape[0], nf + 2),
+                    generator=torch.Generator().manual_seed(seed)
+                    ).to(device)[:, :nf]
+    got = PF.preprocess_backward(g, lv, cam, var)
+    want = PF.preprocess_backward_torch(g, lv, cam, var)
+    out = {"feats": float((feats - w_feats).abs().max())}
+    V = cam[PF.CAM_VIEW:PF.CAM_VIEW + 16].reshape(4, 4)
+    tz = lv.xyz @ V[:3, 2] + V[3, 2]
+    culled = w_radius == 0
+    groups = {"visible": ~culled, "tz0": culled & (tz.abs() < 1e-3),
+              "near": culled & (tz.abs() >= 1e-3) & (tz <= 0.2),
+              "culled": culled & (tz > 0.2)}
+    for name, b in want.as_dict().items():
+        a = getattr(got, name)
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"{name}: a gradient where the plain "
+                                     "version has none")
+            continue
+        for group, rows in groups.items():
+            ga, gb = a[rows], b[rows]
+            if gb.numel() == 0:
+                continue
+            scale = float(gb.abs().max())
+            torch.testing.assert_close(
+                ga, gb, atol=PRE_BWD_ATOL * scale, rtol=0,
+                msg=lambda m, k=f"{name} ({group})": f"{k}: {m}")
+            out[f"{name}.{group}"] = [float((ga - gb).abs().max()), scale]
+    return out
+
+
+def preprocess_bytes(n, k_rest, ch_sem) -> tuple[int, int]:
+    """The least bytes the preprocess moves over ``n`` slots: (forward,
+    backward). The forward reads the leaves' 14 + 3K + S floats and the
+    active byte and writes 14 + S + 3 (the packed row, the radius and the
+    extents); the 12 B a slot of mean2d and depth that it writes again,
+    contiguous, for binning are not counted, since the packed row holds
+    them. The backward reads the leaves but obj_dc and the 14 + S
+    feature-gradient columns, and writes the leaves' 14 + 3K + S."""
+    leaves = 14 + 3 * k_rest
+    fwd = 4 * (leaves + ch_sem) + 1 + 4 * (14 + ch_sem + 3)
+    bwd = 4 * leaves + 4 * (14 + ch_sem) + 4 * (leaves + ch_sem)
+    return n * fwd, n * bwd
+
+
+def preprocess_numbers(device, n, ch_sem, width, height, iters=20) -> dict:
+    """The preprocess kernels at ``n`` slots (SH 3, normals on, S =
+    ``ch_sem``): each kernel's time (CUDA events), its byte bound, and the
+    plain eager chain's times, its forward (``preprocess_torch``) and its
+    autograd backward over the same feature gradient. Before the timing,
+    both kernels are held to their plain versions on the same inputs
+    (``compare_preprocess``): the features' largest error and the largest
+    backward error relative to its leaf's max|g|."""
+    import torch
+
+    from vcr_gaus_tpu_torch.ops import projection as PF
+
+    lv, active, cam = preprocess_scene(n, seed=n, identity=False,
+                                       s_obj=ch_sem, width=width,
+                                       height=height)
+    lv = lv.map(lambda x: x.to(device))
+    active, cam = active.to(device), cam.to(device)
+    var = PF.Variant(width, height, 3, ch_sem, True, 1.0)
+    err = compare_preprocess(lv, active, cam, var, device, seed=n)
+    feats_err = err.pop("feats")
+    bwd_rel_err = max(e / max(m, 1e-30) for e, m in err.values())
+    nf = PF.feature_dim(ch_sem)
+    g = torch.randn((n, nf + 2), device=device)[:, :nf]
+    fwd_ms = cuda_ms(lambda: PF.preprocess_forward(lv, active, cam, var),
+                     iters=iters)
+    bwd_ms = cuda_ms(lambda: PF.preprocess_backward(g, lv, cam, var),
+                     iters=iters)
+    with torch.no_grad():
+        plain_fwd_ms = cuda_ms(
+            lambda: PF.preprocess_torch(lv, active, cam, var), iters=iters)
+    leaves = lv.map(lambda x: x.detach().requires_grad_(True))
+    feats = PF.preprocess_torch(leaves, active, cam, var).feats
+    inputs = list(leaves.as_dict().values())
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        feats, inputs, g, retain_graph=True, allow_unused=True), iters=iters)
+    del feats, leaves, inputs
+    fwd_b, bwd_b = preprocess_bytes(n, lv.f_rest.shape[1], ch_sem)
+    fwd_bound, bwd_bound = (1e3 * b / PEAK_BYTES for b in (fwd_b, bwd_b))
+    return dict(slots=n, ch_sem=ch_sem, feats_max_abs_err=feats_err,
+                bwd_rel_err=bwd_rel_err, leaf_err_and_max=err,
+                fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_bytes=fwd_b,
+                bwd_bytes=bwd_b, dup_bytes=12 * n, fwd_bound_ms=fwd_bound,
+                bwd_bound_ms=bwd_bound, fwd_x_bound=fwd_ms / fwd_bound,
+                bwd_x_bound=bwd_ms / bwd_bound, plain_fwd_ms=plain_fwd_ms,
+                plain_bwd_ms=plain_bwd_ms)
+
+
+def phase_kernel(device) -> tuple[float, float, float, dict]:
+    """Phase 2; returns the largest forward, backward and stats errors, and
+    the preprocess kernels' (``phase_preprocess``)."""
     cases = [("", "traditional", 0, 40, 24, splat_scene(seed=0)),
              ("", "intersection", 0, 40, 24, splat_scene(seed=1)),
              ("", "traditional", 2, 40, 24, splat_scene(seed=6, ch_sem=2)),
@@ -494,7 +701,50 @@ def phase_kernel(device) -> tuple[float, float, float]:
          ragged_row_stats_imp_max_abs_err=rs_err,
          ragged_row_fwd_batches=r_batches.tolist(),
          ragged_row_stats_batches=rs_batches.tolist())
-    return worst, worst_bwd, worst_stats
+    return worst, worst_bwd, worst_stats, phase_preprocess(device)
+
+
+def phase_preprocess(device, n=3000, timing=((1 << 20, 0, 1600, 1200),
+                                             (1 << 22, 2, 1600, 900)),
+                     iters=20) -> dict:
+    """Phase 2's preprocess part: both kernels against their plain versions
+    (``compare_preprocess``) at every variant (SH degree 0..3 or none, S 0
+    or 2, normals on or off) on ``n`` slots of ``preprocess_scene``, with
+    the identity and a random camera rotation; then each kernel's time,
+    byte bound and the plain eager chain's time at each of ``timing``'s
+    (slots, S, width, height), DTU's and TNT's slot counts and images,
+    after the same check on those inputs. Returns the largest forward
+    error, the largest backward error relative to its leaf's max|g|, over
+    both, and the timings."""
+    from vcr_gaus_tpu_torch.ops import projection as PF
+
+    worst_fwd = worst_bwd = 0.0
+    for deg in (None, 0, 1, 2, 3):
+        for ch_sem in (0, 2):
+            for normal in (False, True):
+                for identity in (True, False):
+                    lv, active, cam = preprocess_scene(
+                        n, seed=7 * (deg or 0) + ch_sem + 3 * normal,
+                        identity=identity)
+                    var = PF.Variant(64, 48, deg, ch_sem, normal, 1.0)
+                    err = compare_preprocess(lv, active, cam, var, device)
+                    f_err = err.pop("feats")
+                    worst_fwd = max(worst_fwd, f_err)
+                    worst_bwd = max([worst_bwd] + [e / max(m, 1e-30) for e, m
+                                                   in err.values()])
+                    emit(phase="kernel",
+                         case=f"preprocess_sh{deg}_sem{ch_sem}_normal"
+                              f"{int(normal)}_{'id' if identity else 'rot'}",
+                         feats_max_abs_err=f_err, leaf_err_and_max=err)
+    timings = []
+    for slots, ch_sem, w, h in timing:
+        timings.append(preprocess_numbers(device, slots, ch_sem, w, h,
+                                          iters=iters))
+        worst_fwd = max(worst_fwd, timings[-1]["feats_max_abs_err"])
+        worst_bwd = max(worst_bwd, timings[-1]["bwd_rel_err"])
+        emit(phase="kernel", case="preprocess_timing", **timings[-1])
+    return dict(max_abs_err=worst_fwd, bwd_rel_err=worst_bwd,
+                timings=timings)
 
 
 def write_colmap_views(scene, width, height, n_views, image_fn,
@@ -1018,8 +1268,8 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         # view in each of the two final sweeps (the last iteration's test
         # sweep and the CLI's evaluation), and one for the test sweep's
         # panel
-        want = {"rasterize_fwd": iters + 2 * n_views + 1,
-                "rasterize_bwd": iters}
+        want = with_preprocess({"rasterize_fwd": iters + 2 * n_views + 1,
+                                "rasterize_bwd": iters})
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         hist = trainer.history
@@ -1067,7 +1317,8 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         state, _, aux = one(2, state)
         torch.cuda.synchronize()
         per_step = dict(R.LAUNCHES)
-        if per_step != {"rasterize_fwd": 1, "rasterize_bwd": 1}:
+        if per_step != with_preprocess({"rasterize_fwd": 1,
+                                        "rasterize_bwd": 1}):
             raise AssertionError(f"launches per step {per_step}")
         step_ms, step_losses = [], []
         for i in range(timed_steps):
@@ -1253,7 +1504,7 @@ def camera_batch_checks(device, trainer, state, scene, root, lr,
     state, _, _ = step(state, pair(2), bg, lr, 3, gates)
     torch.cuda.synchronize()
     per_step = dict(R.LAUNCHES)
-    if per_step != {"rasterize_fwd": 2, "rasterize_bwd": 2}:
+    if per_step != with_preprocess({"rasterize_fwd": 2, "rasterize_bwd": 2}):
         raise AssertionError(f"two-view step launches {per_step}")
     step_ms, step_losses = [], []
     for i in range(timed_steps):
@@ -1342,8 +1593,8 @@ def camera_batch_checks(device, trainer, state, scene, root, lr,
     n_eval = eval_views(tr)
     # two forward and two backward launches a step; the last iteration's
     # test sweep (its views and the panel) and the CLI's evaluation
-    want = {"rasterize_fwd": 2 * cli_iters + 2 * n_eval + 1,
-            "rasterize_bwd": 2 * cli_iters}
+    want = with_preprocess({"rasterize_fwd": 2 * cli_iters + 2 * n_eval + 1,
+                            "rasterize_bwd": 2 * cli_iters})
     if cli_launches != want:
         raise AssertionError(f"CLI launches {cli_launches}, expected {want}")
     notice = [ln for ln in text.splitlines() if ln.startswith("[debug]")]
@@ -1548,7 +1799,7 @@ def phase_viewer(device, trainer, scene, root, n_frames=12, pause_s=0.3,
         trainer._gui, trainer._gui_paused = None, False
     torch.cuda.synchronize()
     launches = dict(R.LAUNCHES)
-    if launches != {"rasterize_fwd": len(msgs)}:
+    if launches != with_preprocess({"rasterize_fwd": len(msgs)}):
         raise AssertionError(f"viewer launches {launches}, expected one "
                              f"forward launch for each of {len(msgs)} "
                              "frames")
@@ -1669,8 +1920,9 @@ def phase_viewer(device, trainer, scene, root, n_frames=12, pause_s=0.3,
     cli_client.join()
     cli_launches = dict(R.LAUNCHES)
     n_frames_cli = len(cli_client.frames)
-    want = {"rasterize_fwd": cli_iters + n_frames_cli + 2 * eval_views(tr)
-            + 1, "rasterize_bwd": cli_iters}
+    want = with_preprocess({"rasterize_fwd": cli_iters + n_frames_cli
+                            + 2 * eval_views(tr) + 1,
+                            "rasterize_bwd": cli_iters})
     if n_frames_cli != len(cli_msgs) or cli_launches != want:
         raise AssertionError(f"CLI with the viewer: {n_frames_cli} frames, "
                              f"launches {cli_launches}, expected {want}")
@@ -1721,6 +1973,20 @@ def schedule_launches(trainer, first: int, last: int,
             elif act == "test":
                 want["rasterize_fwd"] += n_train + 1
     return want
+
+
+def with_preprocess(want: dict[str, int]) -> dict[str, int]:
+    """``want``, the compositing kernels' launches of a run through the
+    renderer, with the preprocess kernels' it implies: one forward for each
+    view rendered or swept for stats, one backward for each view
+    differentiated."""
+    out = dict(want)
+    fwd = want.get("rasterize_fwd", 0) + want.get("rasterize_stats", 0)
+    if fwd:
+        out["preprocess_fwd"] = fwd
+    if want.get("rasterize_bwd", 0):
+        out["preprocess_bwd"] = want["rasterize_bwd"]
+    return out
 
 
 def eval_views(trainer) -> int:
@@ -1825,6 +2091,7 @@ def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
         want = schedule_launches(trainer, 1, iters, n_full)
         # the CLI's final evaluation renders every train view
         want["rasterize_fwd"] += eval_views(trainer)
+        want = with_preprocess(want)
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         hist = trainer.history
@@ -1878,6 +2145,7 @@ def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
         r_launches = dict(R.LAUNCHES)
         r_want = schedule_launches(resumed, 21, 20 + resume_iters, n_full)
         r_want["rasterize_fwd"] += eval_views(resumed)
+        r_want = with_preprocess(r_want)
         got_iters = [h["iter"] for h in resumed.history]
         if (got_iters != list(range(21, 21 + resume_iters))
                 or r_launches != r_want):
@@ -2605,6 +2873,7 @@ def phase_train_tnt(device, n_gauss=1_000_000, width=TNT_WIDTH,
         n_full = len(trainer.scene.train_cameras)
         want = schedule_launches(trainer, 1, iters, n_full)
         want["rasterize_fwd"] += eval_views(trainer)
+        want = with_preprocess(want)
         if n_box != 198 or launches != want:
             raise AssertionError(f"launches {launches}, expected {want} "
                                  f"({n_box} box views a densify)")
@@ -2648,6 +2917,7 @@ def phase_train_tnt(device, n_gauss=1_000_000, width=TNT_WIDTH,
         got_iters = [h["iter"] for h in resumed.history]
         r_want = schedule_launches(resumed, 21, 20 + resume_iters, n_full)
         r_want["rasterize_fwd"] += eval_views(resumed)
+        r_want = with_preprocess(r_want)
         if (len(restored) != 1 or not trees_equal(restored[0], extra["net"])
                 or got_iters != list(range(21, 21 + resume_iters))
                 or r_launches != r_want):
@@ -3070,7 +3340,7 @@ def phase_eval_tnt(device, n_gauss=1_000_000, width=TNT_WIDTH,
             raise AssertionError(f"ladder exits {rungs}, expected [3, 0]")
         mesh_launches = dict(R.LAUNCHES)
         n_fused = len(range(0, n_views, 3))
-        if mesh_launches != {"rasterize_fwd": n_fused}:
+        if mesh_launches != with_preprocess({"rasterize_fwd": n_fused}):
             raise AssertionError(f"mesh path launched {mesh_launches}, "
                                  f"expected one per fused view")
         mesh_offset, mesh_verts = offset(mesh_path)
@@ -3724,7 +3994,7 @@ def main() -> int:
                     or "spill" in ln or "entry function" in ln]
                 for k, v in reports.items()})
 
-    worst, worst_bwd, worst_stats = phase_kernel(device)
+    worst, worst_bwd, worst_stats, pre = phase_kernel(device)
     sl = phase_slice(device)
     if sl["launches"] != 8:
         raise AssertionError(f"rasterize_fwd launched {sl['launches']} times "
@@ -3794,7 +4064,19 @@ def main() -> int:
         "launches": mp["launches"], "max_abs_err": mp["max_abs_err"],
         "ms": mp["kernel_ms"], "plain_ms": mp["plain_ms"],
         "bound_ms": mp["bound_ms"], "bound_by": mp["bound_by"],
-        "library_ms": None}])
+        "library_ms": None}] + [{
+        "name": f"preprocess_{d}", "route": "cuda",
+        "source": "vcr_gaus_tpu_torch/csrc/preprocess.cu",
+        "replaces": "none: the renderer's eager per-slot chain",
+        "launches": tr["launches"].get(f"preprocess_{d}", 0),
+        "launches_train_tnt": tnt_launches.get(f"preprocess_{d}", 0),
+        "max_abs_err": pre["max_abs_err"] if d == "fwd" else None,
+        "max_rel_err": pre["bwd_rel_err"] if d == "bwd" else None,
+        "slots": [t["slots"] for t in pre["timings"]],
+        "ms": [t[f"{d}_ms"] for t in pre["timings"]],
+        "plain_ms": [t[f"plain_{d}_ms"] for t in pre["timings"]],
+        "bound_ms": [t[f"{d}_bound_ms"] for t in pre["timings"]],
+        "bound_by": "bytes", "library_ms": None} for d in ("fwd", "bwd")])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,25 @@
+"""Slots the projection-and-SH preprocess walked a view over the traced
+steps: the mean of the program's ``render.preprocess.slots`` counter, which
+the preprocess wrapper sets from the rows it hands its kernel. Nothing where
+the program keeps no such counter, or where the trace does not hold a
+``train.step`` span for each traced step (the records are then not of this
+window)."""
+
+STEP = "train.step"
+COUNTER = "render.preprocess.slots"
+
+
+def records(run):
+    try:
+        from vcr_gaus_tpu_torch.utils import tracing
+    except ImportError:
+        return None
+    lo, hi = run.trace.window
+    n = sum(1 for evs in run.trace.host.values() for s, e, name in evs
+            if name == STEP and lo <= s and e <= hi)
+    return tracing.steps(run.steps) if run.steps and n >= run.steps else None
+
+
+def read(run):
+    values = [v for r in records(run) or () for v in r.get(COUNTER, ())]
+    return sum(values) / len(values) if values else None

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from chip_smoke import (BWD_SATURATED, compare_backward, compare_kernel,
-                        compare_probe, compare_stats, saturated_scene,
-                        splat_scene, threshold_scene)
+                        compare_preprocess, compare_probe, compare_stats,
+                        preprocess_scene, saturated_scene, splat_scene,
+                        threshold_scene)
 from vcr_gaus_tpu_torch.ops import microprobe as M
 
 pytestmark = pytest.mark.cuda
@@ -180,8 +181,77 @@ def test_render_stats_launches_the_kernel(cuda):
     R.reset_launch_counts()
     count, imp = render_stats(state, cam.arrays(cuda, pixels=False),
                               RenderConfig(width=64, height=48))
-    assert dict(R.LAUNCHES) == {"rasterize_stats": 1}
+    assert dict(R.LAUNCHES) == {"preprocess_fwd": 1, "rasterize_stats": 1}
     assert float(count[:200].sum()) > 0 and float(imp[200:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("with_normal", [False, True])
+@pytest.mark.parametrize("ch_sem", [0, 2])
+@pytest.mark.parametrize("deg", [None, 0, 1, 2, 3])
+def test_preprocess_matches_plain(cuda, deg, ch_sem, with_normal):
+    from vcr_gaus_tpu_torch.ops import projection as PF
+    var = PF.Variant(64, 48, deg, ch_sem, with_normal, 1.0)
+    # 3,000 slots (a ragged last block of 56) reaching every branch, seen
+    # through the identity (means at z = 0 exactly) and a random rotation;
+    # compare_preprocess holds radius and extents to exact equality, the
+    # features to atol 2e-4, rtol 1e-3, each leaf's gradient to atol 1e-5
+    # times its max|g| among the visible slots, the culled ones near tz = 0
+    # and the other culled ones apart
+    for identity in (True, False):
+        lv, active, cam = preprocess_scene(3000, seed=11 * (deg or 0) + ch_sem,
+                                           identity=identity)
+        compare_preprocess(lv, active, cam, var, cuda)
+
+
+def test_preprocess_launches_once_a_view(cuda):
+    import numpy as np
+
+    from vcr_gaus_tpu_torch.data.cameras import Camera
+    from vcr_gaus_tpu_torch.models.gaussians import create_from_pcd
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.render.renderer import RenderConfig, render
+
+    rng = np.random.default_rng(1)
+    pts = np.stack([rng.uniform(-1, 1, 300), rng.uniform(-1, 1, 300),
+                    rng.uniform(3, 6, 300)], 1).astype(np.float32)
+    state = create_from_pcd(pts, rng.uniform(0, 1, (300, 3)), 512, 3,
+                            ch_sem=2, device=cuda)
+    params = list(state.params.as_dict().values())
+    for p in params:
+        p.requires_grad_(True)
+    cam = Camera(colmap_id=0, idx=0, image_name="v", R=np.eye(3),
+                 T=np.zeros(3), fovx=0.9, fovy=0.7, width=64, height=48)
+    R.reset_launch_counts()
+    out = render(state, cam.arrays(cuda, pixels=False),
+                 RenderConfig(width=64, height=48, ch_sem=2),
+                 torch.zeros(3, device=cuda), 3)
+    grads = torch.autograd.grad(out["render"].sum() + out["depth"].sum(),
+                                params)
+    assert dict(R.LAUNCHES) == {"preprocess_fwd": 1, "preprocess_bwd": 1,
+                                "rasterize_fwd": 1, "rasterize_bwd": 1}
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert float(grads[0][:300].abs().sum()) > 0
+
+
+def test_preprocess_rejects_mixed_devices_and_strides(cuda):
+    import dataclasses
+
+    from vcr_gaus_tpu_torch.ops import projection as PF
+    lv, active, cam = preprocess_scene(300)
+    lv = lv.map(lambda x: x.to(cuda))
+    active = active.to(cuda)
+    var = PF.Variant(64, 48, 3, 2, True, 1.0)
+    with pytest.raises(ValueError):
+        PF.preprocess_forward(lv, active, cam, var)          # cam on the CPU
+    cam = cam.to(cuda)
+    with pytest.raises(ValueError):
+        PF.preprocess_forward(lv, active.cpu(), cam, var)
+    strided = dataclasses.replace(lv, xyz=lv.xyz.t().contiguous().t())
+    with pytest.raises(ValueError):
+        PF.preprocess_forward(strided, active, cam, var)
+    g = torch.zeros((300, PF.feature_dim(2)), device="cpu")
+    with pytest.raises(ValueError):
+        PF.preprocess_backward(g, lv, cam, var)
 
 
 def probe_inputs(device, n_tiles=4, chunks=6):
@@ -483,7 +553,7 @@ def test_render_flythrough_launches_the_kernel_per_frame(cuda, tmp_path):
     R.reset_launch_counts()
     out = render_flythrough(state, cams, RenderConfig(width=64, height=48),
                             str(tmp_path / "fly.mp4"), n_frames=5)
-    assert dict(R.LAUNCHES) == {"rasterize_fwd": 5}
+    assert dict(R.LAUNCHES) == {"preprocess_fwd": 5, "rasterize_fwd": 5}
     assert os.path.exists(out)
 
 

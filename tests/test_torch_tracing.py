@@ -91,6 +91,8 @@ def test_a_step_under_the_profiler(cpu_trainer, tmp_path):
     assert spans_of(trace, "render.composite_backward")
     assert not spans_of(trace, "train.reset_opacity")
     assert record == {"iteration": it,
+                      "render.preprocess.slots": [
+                          cpu_trainer.state.capacity],
                       "render.entries": [aux["num_entries"]]}
 
 

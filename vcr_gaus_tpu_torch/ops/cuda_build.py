@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[1]
@@ -27,7 +28,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES = {"rasterize_fwd": "rasterize_fwd.cu",
            "rasterize_bwd": "rasterize_bwd.cu",
            "rasterize_stats": "rasterize_stats.cu",
-           "kernel_microprobe": "kernel_microprobe.cu"}
+           "kernel_microprobe": "kernel_microprobe.cu",
+           "preprocess": "preprocess.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -82,6 +84,11 @@ def build_all(names=None) -> dict[str, str]:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return reports
 
+
+# kernel name -> launches since the last reset
+# (``rasterize.reset_launch_counts``); a wrapper adds one where it launches
+# its kernel and nowhere else
+LAUNCHES: Counter = Counter()
 
 _LOAD_LOCK = threading.Lock()
 

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -37,6 +36,7 @@ from ..utils import tracing
 from . import binning as B
 from . import cuda_build
 from . import projection as PF
+from .cuda_build import LAUNCHES
 from .rasterize_ref import ALPHA_CAP, ALPHA_EPS, out_channels
 
 T_EPS = 1e-4
@@ -45,11 +45,6 @@ GROUP = 256              # tiles per round of a plain version's loop
 TILE = B.TILE
 MAX_CH_SEM = 8           # the kernel is instantiated for 0..8 channels
 DEPTH_MODES = ("traditional", "intersection")
-
-# kernel name -> launches since the last reset; a wrapper adds one where it
-# launches its kernel and nowhere else
-LAUNCHES: Counter = Counter()
-
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()

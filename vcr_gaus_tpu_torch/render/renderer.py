@@ -17,7 +17,6 @@ from ..ops import projection as PF
 from ..ops import rasterize as R
 from ..train import losses as L
 from ..utils import graphics as G
-from ..utils import sh as SH
 from ..utils import tracing
 from ..utils.math import safe_normalize
 
@@ -49,38 +48,18 @@ def render(state: GaussianState, cam: CameraArrays, cfg: RenderConfig,
     # spans read by torch.profiler (the benchmark's readers, chip_smoke.py's
     # phase "profile"); with no profiler a span is one check (utils/tracing)
     with tracing.span("render.project"):
-        p = state.params
-        xyz = p.xyz
-        opacity = state.opacity[:, 0]
-
-        proj = PF.project_gaussians(
-            xyz, state.scaling, p.quat, cam.viewmatrix, cam.projmatrix,
-            cam.tanfov[0], cam.tanfov[1], cfg.width, cfg.height,
-            cfg.scale_modifier, opacity=opacity)
-        radius = torch.where(state.active, proj.radius, 0)
-
-        shs = torch.cat([p.f_dc, p.f_rest], dim=1).transpose(1, 2)
-        dir_pp = safe_normalize(xyz - cam.cam_center[None])
-        rgb = torch.clamp_min(SH.eval_sh(sh_degree, shs, dir_pp) + 0.5, 0.0)
-
-        normal_cam = None
-        if cfg.return_normal:
-            normal = state.shortest_axis_normal()
-            view_dir = xyz - cam.cam_center[None]
-            sign = torch.where(torch.sum(view_dir * normal, -1) > 0,
-                               1.0, -1.0)
-            normal_cam = (normal * sign[:, None]) @ cam.viewmatrix[:3, :3]
-
-        sem = p.obj_dc[:, 0, :] if cfg.ch_sem else None
-        feats = PF.pack_features(proj, opacity, rgb, normal_cam, sem,
-                                 cfg.ch_sem)
+        var = PF.Variant(cfg.width, cfg.height, sh_degree, cfg.ch_sem,
+                         cfg.return_normal, cfg.scale_modifier)
+        pre = PF.preprocess(state.params, state.active,
+                            PF.camera_vector(cam), var)
+        feats, radius = pre.feats, pre.radius
         cam_vec = torch.cat([cam.intr, bg_color.to(cam.intr),
                              cam.intr.new_zeros(1)]).contiguous()
         dummy = (densify_dummy if densify_dummy is not None
-                 else xyz.new_zeros((xyz.shape[0], 2)))
-    img, binn = R.rasterize_image(feats, dummy, proj.mean2d, radius,
-                                  proj.depth_z, cam_vec, cfg.width, cfg.height,
-                                  cfg.ch_sem, cfg.depth_mode, extents=proj.ext)
+                 else feats.new_zeros((feats.shape[0], 2)))
+    img, binn = R.rasterize_image(feats, dummy, pre.mean2d, radius,
+                                  pre.depth_z, cam_vec, cfg.width, cfg.height,
+                                  cfg.ch_sem, cfg.depth_mode, extents=pre.ext)
 
     with tracing.span("render.post"):
         wd_sum, wd2_sum, alpha = img[6], img[7], img[8]
@@ -123,14 +102,10 @@ def render_stats(state: GaussianState, cam: CameraArrays, cfg: RenderConfig):
     over one view: projection with zero colour and no normal, inactive slots
     culled, binning, the stats kernel."""
     with tracing.span("render.project"):
-        p = state.params
-        opacity = state.opacity[:, 0]
-        proj = PF.project_gaussians(
-            p.xyz, state.scaling, p.quat, cam.viewmatrix, cam.projmatrix,
-            cam.tanfov[0], cam.tanfov[1], cfg.width, cfg.height,
-            cfg.scale_modifier, opacity=opacity)
-        radius = torch.where(state.active, proj.radius, 0)
-        rgb = torch.zeros_like(p.xyz)
-        feats = PF.pack_features(proj, opacity, rgb, None, None, 0)
-    return R.rasterize_entry_stats(feats, proj.mean2d, radius, proj.depth_z,
-                                   cfg.width, cfg.height, extents=proj.ext)
+        var = PF.Variant(cfg.width, cfg.height, None, 0, False,
+                         cfg.scale_modifier)
+        pre = PF.preprocess(state.params, state.active,
+                            PF.camera_vector(cam), var)
+    return R.rasterize_entry_stats(pre.feats, pre.mean2d, pre.radius,
+                                   pre.depth_z, cfg.width, cfg.height,
+                                   extents=pre.ext)

@@ -41,14 +41,11 @@ def camera_census(state, cam, width: int, height: int):
     pixel radius (0 where culled or inactive), visible count)."""
     from ..ops import binning as B
     from ..ops import projection as PF
-    p = state.params
-    proj = PF.project_gaussians(
-        p.xyz, state.scaling, p.quat, cam.viewmatrix, cam.projmatrix,
-        cam.tanfov[0], cam.tanfov[1], width, height, 1.0,
-        opacity=state.opacity[:, 0])
-    radius = torch.where(state.active, proj.radius, 0)
-    binn = B.bin_gaussians(proj.mean2d, radius, proj.depth_z, width, height,
-                           extents=proj.ext)
+    pre = PF.preprocess(state.params, state.active, PF.camera_vector(cam),
+                        PF.Variant(width, height, None, 0, False))
+    radius = pre.radius
+    binn = B.bin_gaussians(pre.mean2d, radius, pre.depth_z, width, height,
+                           extents=pre.ext)
     return (binn.num_entries, binn.tile_counts.cpu().numpy(),
             radius.cpu().numpy(), int((radius > 0).sum()))
 

@@ -1,4 +1,6 @@
-"""Real spherical harmonics, degrees 0..3 (vcr_gaus_tpu/utils/sh.py).
+"""Real spherical harmonics, degrees 0..3 (vcr_gaus_tpu/utils/sh.py), and
+their basis functions with the basis' gradient along the direction, which
+the closed-form preprocess backward (ops/projection.py) reads.
 
 The operation order follows the JAX package term for term, so both give the
 same float32 rounding."""
@@ -45,6 +47,53 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
                           + C3[5] * z * (xx - yy) * sh[..., 14]
                           + C3[6] * x * (xx - 3 * yy) * sh[..., 15])
     return result
+
+
+def basis(deg: int, x, y, z) -> list:
+    """[basis_0 .. basis_{(deg+1)^2-1}] at the unit directions (x, y, z):
+    eval_sh is sum_k sh[..., k] basis_k."""
+    out = [torch.full_like(x, C0)]
+    if deg > 0:
+        out += [-C1 * y, C1 * z, -C1 * x]
+    if deg > 1:
+        xx, yy, zz = x * x, y * y, z * z
+        out += [C2[0] * x * y, C2[1] * y * z, C2[2] * (2.0 * zz - xx - yy),
+                C2[3] * x * z, C2[4] * (xx - yy)]
+    if deg > 2:
+        out += [C3[0] * y * (3 * xx - yy), C3[1] * x * y * z,
+                C3[2] * y * (4 * zz - xx - yy),
+                C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+                C3[4] * x * (4 * zz - xx - yy), C3[5] * z * (xx - yy),
+                C3[6] * x * (xx - 3 * yy)]
+    return out
+
+
+def basis_grad(deg: int, x, y, z) -> list:
+    """[(d/dx, d/dy, d/dz) of basis_k] for k = 1 .. (deg+1)^2-1 (each entry
+    0 where the basis does not depend on the coordinate)."""
+    zero = torch.zeros_like(x)
+    out = []
+    if deg > 0:
+        c = torch.full_like(x, C1)
+        out += [(zero, -c, zero), (zero, zero, c), (-c, zero, zero)]
+    if deg > 1:
+        xx, yy, zz = x * x, y * y, z * z
+        out += [(C2[0] * y, C2[0] * x, zero), (zero, C2[1] * z, C2[1] * y),
+                (-2.0 * C2[2] * x, -2.0 * C2[2] * y, 4.0 * C2[2] * z),
+                (C2[3] * z, zero, C2[3] * x),
+                (2.0 * C2[4] * x, -2.0 * C2[4] * y, zero)]
+    if deg > 2:
+        out += [(6.0 * C3[0] * x * y, C3[0] * (3 * xx - 3 * yy), zero),
+                (C3[1] * y * z, C3[1] * x * z, C3[1] * x * y),
+                (-2.0 * C3[2] * x * y, C3[2] * (4 * zz - xx - 3 * yy),
+                 8.0 * C3[2] * y * z),
+                (-6.0 * C3[3] * x * z, -6.0 * C3[3] * y * z,
+                 C3[3] * (6 * zz - 3 * xx - 3 * yy)),
+                (C3[4] * (4 * zz - 3 * xx - yy), -2.0 * C3[4] * x * y,
+                 8.0 * C3[4] * x * z),
+                (2.0 * C3[5] * x * z, -2.0 * C3[5] * y * z, C3[5] * (xx - yy)),
+                (C3[6] * (3 * xx - 3 * yy), -6.0 * C3[6] * x * y, zero)]
+    return out
 
 
 def rgb_to_sh(rgb):
