@@ -90,10 +90,16 @@ def test_a_step_under_the_profiler(cpu_trainer, tmp_path):
     # the span opened inside autograd's backward records too
     assert spans_of(trace, "render.composite_backward")
     assert not spans_of(trace, "train.reset_opacity")
+    # the Gaussians given a tile (held to the reference's binning in
+    # test_torch_m360.py)
+    (binned,) = record["render.binned"]
+    assert 0 < binned <= min(int(cpu_trainer.state.active.sum()),
+                             aux["num_entries"])
     assert record == {"iteration": it,
                       "render.preprocess.slots": [
                           cpu_trainer.state.capacity],
-                      "render.entries": [aux["num_entries"]]}
+                      "render.entries": [aux["num_entries"]],
+                      "render.binned": [binned]}
 
 
 def test_records_are_bounded_and_closed():
@@ -126,6 +132,8 @@ def test_the_card_step_counts_allocator_calls(tmp_path):
     trainer.train_step()
     trace, record, aux = profiled_step(trainer, "cuda", tmp_path)
     assert record["render.entries"] == [aux["num_entries"]]
+    (binned,) = record["render.binned"]
+    assert 0 < binned <= aux["num_entries"]
     (calls,) = record["cuda.alloc_calls"]
     assert isinstance(calls, int) and calls >= 0
     assert spans_of(trace, "train.upload")

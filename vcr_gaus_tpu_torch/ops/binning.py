@@ -26,6 +26,7 @@ class Binning(NamedTuple):
     tile_counts: torch.Tensor    # (T,) int32 entries of each tile
     num_entries: int             # E
     overflow: bool               # always False: the port has no budget
+    num_binned: int = 0          # Gaussians with at least one entry
 
 
 def cdiv(a: int, b: int) -> int:
@@ -73,9 +74,11 @@ def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
     offsets = torch.cumsum(count, 0) - count
 
     # expansion in gaussian order, row-major within each rect; the entry
-    # count sizes it, the one wait on the device in binning
+    # count sizes it, read with the binned Gaussians' count in the one wait
+    # on the device in binning
     with tracing.span("render.binning.readback"):
-        e = int(count.sum())
+        e, binned = torch.stack([count.sum(),
+                                 torch.count_nonzero(count)]).tolist()
     gid = torch.repeat_interleave(torch.arange(n, device=dev), count,
                                   output_size=e)
     slot = torch.arange(e, device=dev) - offsets[gid]
@@ -98,4 +101,5 @@ def bin_gaussians(mean2d: torch.Tensor, radius: torch.Tensor,
         tile_starts=tile_starts.to(torch.int32),
         tile_counts=tile_counts.to(torch.int32),
         num_entries=e,
-        overflow=False)
+        overflow=False,
+        num_binned=binned)

@@ -485,6 +485,7 @@ def rasterize_image(feats: torch.Tensor, dummy: torch.Tensor,
         binn = B.bin_gaussians(mean2d, radius, depth_z, width, height,
                                extents=extents)
     tracing.count("render.entries", binn.num_entries)
+    tracing.count("render.binned", binn.num_binned)
     with tracing.span("render.composite"):
         img, _ = _Composite.apply(feats, dummy, binn, cam, width, height,
                                   ch_sem, depth_mode)
