@@ -25,7 +25,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              culled near tz = 0, culled in front of the near plane, other
              culled); then the same check, and both kernels' times, byte
              bounds and the plain eager chain's times, at DTU's 2^20 slots
-             on 1600x1200 and TNT's 2^22 on 1600x900;
+             on 1600x1200 and TNT's 2^22 on 1600x900; then (phase adam)
+             the update kernel (csrc/adam.cu: the masked Adam step and the
+             densification statistics) against its plain chain at steps 1
+             and 2, every output bit for bit and every input unchanged, on
+             a ragged state 4 B off alignment, an SH-0 state, and 2^22
+             (S 2) and 2^23 (S 0) slots, with about half the slots
+             inactive; at the last two its time, the plain chain's and
+             the byte bound;
   3. slice   the render path at full width: a synthetic COLMAP scene of 8
              1600x1200 views and a 1M-Gaussian SH-degree-3 PLY, rendered and
              scored by vcr_gaus_tpu_torch.render_eval.main with
@@ -747,6 +754,175 @@ def phase_preprocess(device, n=3000, timing=((1 << 20, 0, 1600, 1200),
                 timings=timings)
 
 
+def adam_inputs(n, sh_degree, ch_sem, device, seed=0, aligned=True) -> tuple:
+    """Seeded inputs of ``adam_and_stats`` over ``n`` slots on ``device``:
+    (state, grads, g2d, radii, visibility). Random parameters and first
+    moments, second moments >= 0, gradients whose magnitudes span
+    1e-20..1 (their squares reach float32's subnormals), about half the
+    slots inactive; the dummy's gradient as the last two columns of a
+    (C, 16+S) matrix, as K2 gives it; int32 radii 0..40, visibility where
+    the radius is positive, random statistics; Adam's step 0. Unless
+    ``aligned``, every leaf array starts 4 B past a 16-byte boundary, so
+    that the kernel takes its scalar path."""
+    import torch
+
+    from vcr_gaus_tpu_torch.models import gaussians as GM
+
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def uniform(shape, lo, hi):
+        return torch.empty(shape, device=device).uniform_(lo, hi,
+                                                          generator=gen)
+
+    def place(x):
+        if aligned:
+            return x
+        out = torch.empty(x.numel() + 1, device=device)[1:].view(x.shape)
+        return out.copy_(x)
+
+    template = GM.zeros_params(n, sh_degree, ch_sem, device)
+
+    def leaves(fn):
+        return template.map(lambda z: place(fn(z.shape)))
+
+    params = leaves(lambda s: torch.randn(s, generator=gen, device=device))
+    mu = leaves(lambda s: torch.randn(s, generator=gen, device=device)
+                * torch.exp(uniform(s, -20.0, 0.0)) * 1e-3)
+    nu = leaves(lambda s: uniform(s, 0.0, 1.0) ** 4 * 1e-6)
+    grads = leaves(lambda s: torch.randn(s, generator=gen, device=device)
+                   * torch.exp(uniform(s, -46.0, 0.0)))
+    active = uniform((n,), 0.0, 1.0) < 0.5
+    radii = torch.randint(0, 41, (n,), generator=gen, device=device,
+                          dtype=torch.int32)
+    g2d = torch.randn((n, 16 + ch_sem), generator=gen,
+                      device=device)[:, 14 + ch_sem:]
+    state = GM.GaussianState(
+        params=params, adam=GM.AdamState(mu, nu, 0), active=active,
+        max_radii2d=torch.randint(0, 60, (n,), generator=gen,
+                                  device=device).float(),
+        grad_accum=uniform((n,), 0.0, 10.0),
+        denom=torch.randint(0, 100, (n,), generator=gen,
+                            device=device).float(),
+        active_sh_degree=sh_degree)
+    return state, grads, g2d, radii, radii > 0
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a Gaussian state by name."""
+    out = {"active": state.active, "max_radii2d": state.max_radii2d,
+           "grad_accum": state.grad_accum, "denom": state.denom}
+    for group, params in (("p", state.params), ("mu", state.adam.mu),
+                          ("nu", state.adam.nu)):
+        out.update({f"{group}.{k}": v for k, v in params.as_dict().items()})
+    return out
+
+
+def compare_adam(state, grads, lrs, g2d, ndc_scale, radii, visibility):
+    """``adam_and_stats`` (the kernel, on the card) against its plain
+    version ``adam_and_stats_torch`` on the same inputs: every output
+    tensor bit for bit, inactive slots included, and every input left as
+    it was (the update is out of place). Returns (the kernel's state, the
+    largest absolute error, the count of differing elements); raises on
+    any difference."""
+    import torch
+
+    from vcr_gaus_tpu_torch.models import gaussians as GM
+
+    inputs = {**state_tensors(state), "radii": radii,
+              "visibility": visibility, "g2d": g2d,
+              **{f"g.{k}": v for k, v in grads.as_dict().items()}}
+    before = {k: v.clone() for k, v in inputs.items()}
+    got = GM.adam_and_stats(state, grads, lrs, g2d, ndc_scale, radii,
+                            visibility)
+    want = GM.adam_and_stats_torch(state, grads, lrs, g2d, ndc_scale, radii,
+                                   visibility)
+    moved = [k for k, v in inputs.items() if not torch.equal(v, before[k])]
+    if moved:
+        raise AssertionError(f"the update wrote its inputs: {moved}")
+    worst, bad = 0.0, {}
+    for k, a in state_tensors(got).items():
+        b = state_tensors(want)[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{k}: {a.dtype} {tuple(a.shape)}, plain "
+                                 f"{b.dtype} {tuple(b.shape)}")
+        if a.numel() == 0 or a.dtype == torch.bool:
+            continue
+        n_bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        worst = max(worst, float((a - b).abs().max()))
+        if n_bad:
+            bad[k] = n_bad
+    if bad or got.adam.step != want.adam.step:
+        raise AssertionError(f"the kernel differs from the plain chain in "
+                             f"{bad} elements (max abs {worst}), step "
+                             f"{got.adam.step} vs {want.adam.step}")
+    return got, worst, sum(bad.values())
+
+
+def adam_bytes(n, k_rest, ch_sem) -> int:
+    """The least bytes the update moves over ``n`` slots: each of the
+    14 + 3K + S floats a slot reads p, g, mu, nu and writes p, mu, nu
+    (28 B); the statistics read the (C, 2) gradient (8 B), the radius (4),
+    visibility and active (1 each) and the three statistics (12), and
+    write the three (12): 38 B a slot."""
+    return n * (28 * (14 + 3 * k_rest + ch_sem) + 38)
+
+
+# the update's learning rates in the checks: the DTU recipe's, xyz at its
+# initial rate for a unit extent
+ADAM_LRS = dict(xyz=1.6e-4, f_dc=0.0025, f_rest=0.0025 / 20.0, opacity=0.05,
+                scaling=0.005, rotation=0.001, obj_dc=0.0025)
+
+
+def phase_adam(device, cases=(("unaligned", 4099, 1, 3, False, False),
+                              ("sh0", 1 << 20, 0, 0, True, False),
+                              ("tnt", 1 << 22, 3, 2, True, True),
+                              ("m360", 1 << 23, 3, 0, True, True)),
+               iters=10) -> dict:
+    """The update kernel (``csrc/adam.cu``) against its plain chain on the
+    card (``compare_adam``) at steps 1 and 2 of each case (name, slots, SH
+    degree, S, aligned, timed): a ragged unaligned state (the scalar
+    path), an SH-0 state (f_rest of width 0 left out of the table), and
+    the benchmark's TNT (2^22 slots, S 2) and Mip-NeRF 360 (2^23, S 0)
+    capacities, whose kernel and plain-chain times (CUDA events, from the
+    step-1 inputs) are printed beside the byte bound. Returns the largest
+    error and the timings."""
+    import torch
+
+    from vcr_gaus_tpu_torch.models import gaussians as GM
+
+    lrs = GM.LearningRates(**ADAM_LRS)
+    worst, timings = 0.0, []
+    for name, n, sh, ch_sem, aligned, timed in cases:
+        ndc = (800.0, 531.5)
+        state, grads, g2d, radii, vis = adam_inputs(n, sh, ch_sem, device,
+                                                    seed=n, aligned=aligned)
+        row = dict(case=name, slots=n, sh_degree=sh, ch_sem=ch_sem,
+                   aligned=aligned)
+        got, err1, _ = compare_adam(state, grads, lrs, g2d, ndc, radii, vis)
+        _, grads2, g2d2, radii2, vis2 = adam_inputs(n, sh, ch_sem, device,
+                                                    seed=n + 1,
+                                                    aligned=aligned)
+        _, err2, _ = compare_adam(got, grads2, lrs, g2d2, ndc, radii2, vis2)
+        del got, grads2, g2d2, radii2, vis2
+        worst = max(worst, err1, err2)
+        row.update(max_abs_err=max(err1, err2), differing=0)
+        if timed:
+            k_ms = cuda_ms(lambda: GM.adam_and_stats(
+                state, grads, lrs, g2d, ndc, radii, vis), iters=iters)
+            with torch.no_grad():
+                p_ms = cuda_ms(lambda: GM.adam_and_stats_torch(
+                    state, grads, lrs, g2d, ndc, radii, vis), iters=iters)
+            b = adam_bytes(n, state.params.f_rest.shape[1], ch_sem)
+            bound = 1e3 * b / PEAK_BYTES
+            row.update(ms=k_ms, plain_ms=p_ms, bytes=b, bound_ms=bound,
+                       x_bound=k_ms / bound)
+            timings.append(row)
+        emit(phase="adam", **row)
+        del state, grads, g2d, radii, vis
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, timings=timings)
+
+
 def write_colmap_views(scene, width, height, n_views, image_fn,
                        poses=None):
     """COLMAP cameras of ``n_views`` views under ``scene`` (fovx 0.9, fovy
@@ -1269,7 +1445,7 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         # sweep and the CLI's evaluation), and one for the test sweep's
         # panel
         want = with_preprocess({"rasterize_fwd": iters + 2 * n_views + 1,
-                                "rasterize_bwd": iters})
+                                "rasterize_bwd": iters, "adam_stats": iters})
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         hist = trainer.history
@@ -1318,7 +1494,8 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         torch.cuda.synchronize()
         per_step = dict(R.LAUNCHES)
         if per_step != with_preprocess({"rasterize_fwd": 1,
-                                        "rasterize_bwd": 1}):
+                                        "rasterize_bwd": 1,
+                                        "adam_stats": 1}):
             raise AssertionError(f"launches per step {per_step}")
         step_ms, step_losses = [], []
         for i in range(timed_steps):
@@ -1504,7 +1681,8 @@ def camera_batch_checks(device, trainer, state, scene, root, lr,
     state, _, _ = step(state, pair(2), bg, lr, 3, gates)
     torch.cuda.synchronize()
     per_step = dict(R.LAUNCHES)
-    if per_step != with_preprocess({"rasterize_fwd": 2, "rasterize_bwd": 2}):
+    if per_step != with_preprocess({"rasterize_fwd": 2, "rasterize_bwd": 2,
+                                    "adam_stats": 1}):
         raise AssertionError(f"two-view step launches {per_step}")
     step_ms, step_losses = [], []
     for i in range(timed_steps):
@@ -1591,10 +1769,12 @@ def camera_batch_checks(device, trainer, state, scene, root, lr,
     cli_launches = dict(R.LAUNCHES)
     text = buf.getvalue()
     n_eval = eval_views(tr)
-    # two forward and two backward launches a step; the last iteration's
-    # test sweep (its views and the panel) and the CLI's evaluation
+    # two forward and two backward launches and one update a step; the
+    # last iteration's test sweep (its views and the panel) and the CLI's
+    # evaluation
     want = with_preprocess({"rasterize_fwd": 2 * cli_iters + 2 * n_eval + 1,
-                            "rasterize_bwd": 2 * cli_iters})
+                            "rasterize_bwd": 2 * cli_iters,
+                            "adam_stats": cli_iters})
     if cli_launches != want:
         raise AssertionError(f"CLI launches {cli_launches}, expected {want}")
     notice = [ln for ln in text.splitlines() if ln.startswith("[debug]")]
@@ -1922,7 +2102,8 @@ def phase_viewer(device, trainer, scene, root, n_frames=12, pause_s=0.3,
     n_frames_cli = len(cli_client.frames)
     want = with_preprocess({"rasterize_fwd": cli_iters + n_frames_cli
                             + 2 * eval_views(tr) + 1,
-                            "rasterize_bwd": cli_iters})
+                            "rasterize_bwd": cli_iters,
+                            "adam_stats": cli_iters})
     if n_frames_cli != len(cli_msgs) or cli_launches != want:
         raise AssertionError(f"CLI with the viewer: {n_frames_cli} frames, "
                              f"launches {cli_launches}, expected {want}")
@@ -1954,17 +2135,20 @@ def phase_viewer(device, trainer, scene, root, n_frames=12, pause_s=0.3,
 
 def schedule_launches(trainer, first: int, last: int,
                       n_full: int) -> dict[str, int]:
-    """The stats, forward and backward launches the schedule implies for
-    iterations first..last of ``trainer``'s recipe: one forward and one
-    backward per step; per densify the box mask's views (``box_views``),
-    per prune and for the final importance dump one stats launch per view
-    of the ``n_full`` train and test views; per test sweep one forward per
-    train view (at most ``tpu.eval_max_cams``) and one for the panel."""
+    """The stats, forward, backward and update launches the schedule
+    implies for iterations first..last of ``trainer``'s recipe: one
+    forward, one backward and one update per step; per densify the box
+    mask's views (``box_views``), per prune and for the final importance
+    dump one stats launch per view of the ``n_full`` train and test
+    views; per test sweep one forward per train view (at most
+    ``tpu.eval_max_cams``) and one for the panel."""
     n_train = eval_views(trainer)
-    want = {"rasterize_fwd": 0, "rasterize_bwd": 0, "rasterize_stats": 0}
+    want = {"rasterize_fwd": 0, "rasterize_bwd": 0, "rasterize_stats": 0,
+            "adam_stats": 0}
     for j in range(first, last + 1):
         want["rasterize_fwd"] += 1
         want["rasterize_bwd"] += 1
+        want["adam_stats"] += 1
         for act in trainer.host_actions(j):
             if act == "densify":
                 want["rasterize_stats"] += box_views(trainer)
@@ -3995,6 +4179,7 @@ def main() -> int:
                 for k, v in reports.items()})
 
     worst, worst_bwd, worst_stats, pre = phase_kernel(device)
+    ad = phase_adam(device)
     sl = phase_slice(device)
     if sl["launches"] != 8:
         raise AssertionError(f"rasterize_fwd launched {sl['launches']} times "
@@ -4076,7 +4261,18 @@ def main() -> int:
         "ms": [t[f"{d}_ms"] for t in pre["timings"]],
         "plain_ms": [t[f"plain_{d}_ms"] for t in pre["timings"]],
         "bound_ms": [t[f"{d}_bound_ms"] for t in pre["timings"]],
-        "bound_by": "bytes", "library_ms": None} for d in ("fwd", "bwd")])
+        "bound_by": "bytes", "library_ms": None} for d in ("fwd", "bwd")] + [{
+        "name": "adam_stats", "route": "cuda",
+        "source": "vcr_gaus_tpu_torch/csrc/adam.cu",
+        "replaces": "none: the eager per-leaf Adam and statistics chain",
+        "launches": tr["launches"].get("adam_stats", 0),
+        "launches_train_tnt": tnt_launches.get("adam_stats", 0),
+        "max_abs_err": ad["max_abs_err"],
+        "slots": [t["slots"] for t in ad["timings"]],
+        "ms": [t["ms"] for t in ad["timings"]],
+        "plain_ms": [t["plain_ms"] for t in ad["timings"]],
+        "bound_ms": [t["bound_ms"] for t in ad["timings"]],
+        "bound_by": "bytes", "library_ms": None}])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

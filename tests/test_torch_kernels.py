@@ -12,10 +12,10 @@ import os
 import pytest
 import torch
 
-from chip_smoke import (BWD_SATURATED, compare_backward, compare_kernel,
-                        compare_preprocess, compare_probe, compare_stats,
-                        preprocess_scene, saturated_scene, splat_scene,
-                        threshold_scene)
+from chip_smoke import (ADAM_LRS, BWD_SATURATED, adam_inputs, compare_adam,
+                        compare_backward, compare_kernel, compare_preprocess,
+                        compare_probe, compare_stats, preprocess_scene,
+                        saturated_scene, splat_scene, threshold_scene)
 from vcr_gaus_tpu_torch.ops import microprobe as M
 
 pytestmark = pytest.mark.cuda
@@ -257,6 +257,31 @@ def test_preprocess_rejects_mixed_devices_and_strides(cuda):
 def probe_inputs(device, n_tiles=4, chunks=6):
     return [torch.from_numpy(a).to(device)
             for a in M.probe_inputs(n_tiles, chunks, seed=2)]
+
+
+@pytest.mark.parametrize("case", [(4099, 1, 3, False), (5000, 3, 2, True),
+                                  (3001, 0, 0, True)])
+def test_adam_stats_matches_plain(cuda, case):
+    from vcr_gaus_tpu_torch.models import gaussians as GM
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+
+    # (slots, SH degree, S, aligned): a ragged state 4 B off alignment (the
+    # scalar path), S 2 at SH 3, and SH 0 (f_rest left out of the table)
+    n, sh, ch_sem, aligned = case
+    lrs = GM.LearningRates(**ADAM_LRS)
+    state, grads, g2d, radii, vis = adam_inputs(n, sh, ch_sem, cuda, seed=n,
+                                                aligned=aligned)
+    R.reset_launch_counts()
+    # every output bit for bit, every input unchanged (compare_adam raises)
+    got, _, _ = compare_adam(state, grads, lrs, g2d, (800.0, 531.5), radii,
+                             vis)
+    assert dict(R.LAUNCHES) == {"adam_stats": 1}
+    _, grads, g2d, radii, vis = adam_inputs(n, sh, ch_sem, cuda, seed=n + 1,
+                                            aligned=aligned)
+    compare_adam(got, grads, lrs, g2d, (800.0, 531.5), radii, vis)
+    with pytest.raises(ValueError):
+        GM.adam_and_stats(got, grads, lrs, g2d, (800.0, 531.5),
+                          radii.long(), vis)
 
 
 @pytest.mark.parametrize("variant", list(M.VARIANTS))

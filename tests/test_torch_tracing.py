@@ -136,5 +136,7 @@ def test_the_card_step_counts_allocator_calls(tmp_path):
     assert 0 < binned <= aux["num_entries"]
     (calls,) = record["cuda.alloc_calls"]
     assert isinstance(calls, int) and calls >= 0
+    # the update kernel's counter, on the card's path alone
+    assert record["train.adam.slots"] == [trainer.state.capacity]
     assert spans_of(trace, "train.upload")
     assert spans_of(trace, "render.composite_backward")

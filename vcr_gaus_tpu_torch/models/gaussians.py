@@ -6,18 +6,30 @@ Adam moments with one shared bias-correction step, and the densification
 statistics, so the two packages' states compare slot by slot. Clone, split
 and prune move rows between slots in the JAX package's slot order; the
 capacity grows only through ``expand_capacity``.
+
+``adam_and_stats`` is the training step's update: on a CUDA tensor the
+hand-written kernel ``csrc/adam.cu`` (``vcr_adam_stats``), one launch over
+every slot of every leaf and the statistics; on the CPU its plain version
+``adam_and_stats_torch``: ``mask_grads``, ``adam_step`` and
+``add_densification_stats`` in turn. The kernel's outputs equal the plain
+version's on the card bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from dataclasses import dataclass, fields
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops import cuda_build
 from ..utils import math as M
 from ..utils import sh as SH
+from ..utils import tracing
 
 
 @dataclass
@@ -163,6 +175,13 @@ class LearningRates:
                 "logit_opacity": self.opacity, "obj_dc": self.obj_dc}
 
 
+def bias_corrections(step: int) -> tuple[float, float]:
+    """Adam's (1 - B1^step, 1 - B2^step), in float32 as the JAX package."""
+    f32 = np.float32
+    return (float(f32(1.0) - f32(B1) ** f32(step)),
+            float(f32(1.0) - f32(B2) ** f32(step)))
+
+
 def adam_step(state: GaussianState, grads: GaussianParams,
               lrs: LearningRates) -> GaussianState:
     """One Adam update over all padded parameter arrays with one shared
@@ -170,9 +189,7 @@ def adam_step(state: GaussianState, grads: GaussianParams,
     their moments stay 0. Returns a new state; the inputs are not
     modified."""
     step = state.adam.step + 1
-    f32 = np.float32
-    bc1 = float(f32(1.0) - f32(B1) ** f32(step))
-    bc2 = float(f32(1.0) - f32(B2) ** f32(step))
+    bc1, bc2 = bias_corrections(step)
     lr = lrs.per_param()
     new_p, new_mu, new_nu = {}, {}, {}
     for name, p in state.params.as_dict().items():
@@ -206,6 +223,123 @@ def add_densification_stats(state: GaussianState, abs_grad2d: torch.Tensor,
         max_radii2d=torch.where(
             vis, torch.maximum(state.max_radii2d, radii.to(torch.float32)),
             state.max_radii2d))
+
+
+class AdamTable(NamedTuple):
+    """What ``vcr_adam_stats`` receives besides pointers: the leaves of
+    nonzero width in field order as (name, floats a slot, learning rate),
+    and the update's scalars, each the float32 that PyTorch's eager chain
+    on the card uses: a Python float rounded to float32, and for ``t / s``
+    the float32 reciprocal of ``s`` (``inv_bc1``, ``inv_bc2``)."""
+    leaves: list[tuple[str, int, np.float32]]
+    scalars: dict[str, np.float32]
+
+
+def adam_table(params: GaussianParams, lrs: LearningRates,
+               step: int) -> AdamTable:
+    """The kernel's leaf table and scalars for the update to ``step``."""
+    f32 = np.float32
+    lr = lrs.per_param()
+    capacity = params.xyz.shape[0]
+    leaves = [(name, p.numel() // capacity, f32(lr[name]))
+              for name, p in params.as_dict().items() if p.numel()]
+    bc1, bc2 = bias_corrections(step)
+    return AdamTable(leaves, {
+        "b1": f32(B1), "c1": f32(1 - B1), "b2": f32(B2), "c2": f32(1 - B2),
+        "inv_bc1": f32(1.0) / f32(bc1), "inv_bc2": f32(1.0) / f32(bc2),
+        "eps": f32(EPS)})
+
+
+def adam_and_stats_torch(state: GaussianState, grads: GaussianParams,
+                         lrs: LearningRates, g2d: torch.Tensor,
+                         ndc_scale: tuple[float, float], radii: torch.Tensor,
+                         visibility: torch.Tensor) -> GaussianState:
+    """The plain version of ``adam_and_stats``: ``mask_grads``,
+    ``adam_step`` and ``add_densification_stats`` of ``g2d * ndc_scale``
+    in turn."""
+    new = adam_step(state, mask_grads(grads, state.active), lrs)
+    return add_densification_stats(new, g2d * g2d.new_tensor(ndc_scale),
+                                   radii, visibility)
+
+
+def adam_and_stats(state: GaussianState, grads: GaussianParams,
+                   lrs: LearningRates, g2d: torch.Tensor,
+                   ndc_scale: tuple[float, float], radii: torch.Tensor,
+                   visibility: torch.Tensor) -> GaussianState:
+    """The training step's update: the kernel on a CUDA tensor,
+    ``adam_and_stats_torch`` otherwise. ``g2d`` is the densify dummy's
+    (C, 2) gradient (pixels), ``ndc_scale`` the ndc2Pix jacobian (0.5 W,
+    0.5 H). Returns a new state; the inputs are not modified."""
+    if state.active.device.type != "cuda":
+        return adam_and_stats_torch(state, grads, lrs, g2d, ndc_scale, radii,
+                                    visibility)
+    capacity, dev = state.capacity, state.active.device
+    step = state.adam.step + 1
+    table = adam_table(state.params, lrs, step)
+
+    def check(x, dtype, shape):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"expected a {dtype} tensor of shape {shape} on "
+                             f"{dev}, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+        return x
+
+    out = {name: [torch.empty(p.shape, dtype=torch.float32, device=dev)
+                  for _ in range(3)]
+           for name, p in state.params.as_dict().items()}
+    leaves = []        # held until the launch: contiguous copies may be new
+    for name, _, _ in table.leaves:
+        shape = tuple(getattr(state.params, name).shape)
+        leaves += [check(getattr(x, name), torch.float32, shape).contiguous()
+                   for x in (state.params, grads, state.adam.mu,
+                             state.adam.nu)] + out[name]
+    # the dummy's gradient may be a column slice of K2's (C, 16+S) output
+    g2d = check(g2d, torch.float32, (capacity, 2))
+    if g2d.stride(1) != 1 or g2d.stride(0) < 2:
+        g2d = g2d.contiguous()
+    active, visibility = (check(x, torch.bool, (capacity,)).contiguous()
+                          for x in (state.active, visibility))
+    radii = check(radii, torch.int32, (capacity,)).contiguous()
+    stats_in = [check(x, torch.float32, (capacity,)).contiguous()
+                for x in (state.grad_accum, state.denom, state.max_radii2d)]
+    stats_out = [torch.empty(capacity, dtype=torch.float32, device=dev)
+                 for _ in range(3)]
+    n, sc = len(table.leaves), table.scalars
+    with torch.cuda.device(dev):
+        err = _adam_kernel()(
+            (ctypes.c_longlong * (7 * n))(*(x.data_ptr() for x in leaves)),
+            (ctypes.c_longlong * n)(*(w * capacity
+                                      for _, w, _ in table.leaves)),
+            (ctypes.c_int * n)(*(w for _, w, _ in table.leaves)),
+            (ctypes.c_float * n)(*(lr for _, _, lr in table.leaves)), n,
+            *(sc[k] for k in ("b1", "c1", "b2", "c2", "inv_bc1", "inv_bc2",
+                              "eps")),
+            active.data_ptr(), capacity, g2d.data_ptr(), g2d.stride(0),
+            *(np.float32(x) for x in ndc_scale), radii.data_ptr(),
+            visibility.data_ptr(),
+            *(x.data_ptr() for x in stats_in + stats_out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"adam_stats launch failed: cudaError {err}")
+    cuda_build.LAUNCHES["adam_stats"] += 1
+    tracing.count("train.adam.slots", capacity)
+    return state.replace(
+        params=GaussianParams(**{k: v[0] for k, v in out.items()}),
+        adam=AdamState(GaussianParams(**{k: v[1] for k, v in out.items()}),
+                       GaussianParams(**{k: v[2] for k, v in out.items()}),
+                       step),
+        grad_accum=stats_out[0], denom=stats_out[1],
+        max_radii2d=stats_out[2])
+
+
+@functools.cache
+def _adam_kernel():
+    fn = cuda_build.load("adam").vcr_adam_stats
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([p] * 4 + [i] + [f] * 7 + [p, i, p, i, f, f] + [p] * 8
+                   + [p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 # --- population edits: allocation, clone, split, prune (fixed capacity) -------

@@ -234,18 +234,15 @@ def make_train_step(cfg, rcfg: RenderConfig, weights: dict,
         grads = grads[:n_gauss]
         g_params = GM.GaussianParams(*grads[:-1])
         with tracing.span("train.adam"), torch.no_grad():
-            g_params = GM.mask_grads(g_params, state.active)
             lrs = GM.LearningRates(
                 xyz=lr_xyz, f_dc=o.feature_lr, f_rest=o.feature_lr / 20.0,
                 opacity=o.opacity_lr, scaling=o.scaling_lr,
                 rotation=o.rotation_lr, obj_dc=o.feature_lr)
-            new_state = GM.adam_step(state, g_params, lrs)
             # the kernel's stream is in pixels; the reference reports mean2D
             # grads through the ndc2Pix jacobian (0.5 W, 0.5 H), and the
             # densify threshold is in those units
-            g_dummy = grads[-1] * grads[-1].new_tensor(ndc_scale)
-            new_state = GM.add_densification_stats(
-                new_state, g_dummy, radii, visibility)
+            new_state = GM.adam_and_stats(state, g_params, lrs, grads[-1],
+                                          ndc_scale, radii, visibility)
         aux = {"num_entries": num_entries}
         return new_state, losses, aux
 
