@@ -503,6 +503,23 @@ def preprocess_scene(n=400, seed=0, identity=True, k_rest=15, s_obj=2,
     return lv, torch.tensor(active), PF.camera_vector(arr).to(dtype)
 
 
+def preprocess_groups(lv, cam, radius) -> dict:
+    """The slots of ``preprocess_scene`` in the groups whose gradients are
+    held apart, as boolean masks: those with a ``radius``, and of the culled
+    ones those whose camera depth is within 1e-3 of 0 (their gradients go
+    through tz_safe or 1/tz^2 and are many orders larger), the others in
+    front of the near plane, and those behind it (outside the image or the
+    tanfov clamp, or too faint)."""
+    from vcr_gaus_tpu_torch.ops import projection as PF
+
+    V = cam[PF.CAM_VIEW:PF.CAM_VIEW + 16].reshape(4, 4)
+    tz = lv.xyz @ V[:3, 2] + V[3, 2]
+    culled = radius == 0
+    return {"visible": ~culled, "tz0": culled & (tz.abs() < 1e-3),
+            "near": culled & (tz.abs() >= 1e-3) & (tz <= 0.2),
+            "culled": culled & (tz > 0.2)}
+
+
 def compare_preprocess(lv, active, cam, var, device, seed=0) -> dict:
     """The preprocess kernels against their plain versions on ``device``:
     the radius and the extents exactly equal, the packed features at the
@@ -510,13 +527,8 @@ def compare_preprocess(lv, active, cam, var, device, seed=0) -> dict:
     and each leaf's gradient of a seeded random feature
     gradient (read as the first 14+S columns of a (C, 16+S) matrix, as K2
     gives it) at atol ``PRE_BWD_ATOL`` times the leaf's own max|g| in each
-    group of slots: those with a radius, and of the culled ones those whose
-    camera depth is within 1e-3 of 0 (their gradients go through tz_safe
-    or 1/tz^2 and are many orders larger), the others in front of the near
-    plane, and those behind it (outside the image or the tanfov clamp, or
-    too faint). Returns the
-    features' largest error and, per leaf and group, [largest error,
-    max|g|]."""
+    of ``preprocess_groups``. Returns the features' largest error and, per
+    leaf and group, [largest error, max|g|]."""
     import torch
 
     from vcr_gaus_tpu_torch.ops import projection as PF
@@ -543,12 +555,7 @@ def compare_preprocess(lv, active, cam, var, device, seed=0) -> dict:
     got = PF.preprocess_backward(g, lv, cam, var)
     want = PF.preprocess_backward_torch(g, lv, cam, var)
     out = {"feats": float((feats - w_feats).abs().max())}
-    V = cam[PF.CAM_VIEW:PF.CAM_VIEW + 16].reshape(4, 4)
-    tz = lv.xyz @ V[:3, 2] + V[3, 2]
-    culled = w_radius == 0
-    groups = {"visible": ~culled, "tz0": culled & (tz.abs() < 1e-3),
-              "near": culled & (tz.abs() >= 1e-3) & (tz <= 0.2),
-              "culled": culled & (tz > 0.2)}
+    groups = preprocess_groups(lv, cam, w_radius)
     for name, b in want.as_dict().items():
         a = getattr(got, name)
         if b is None:

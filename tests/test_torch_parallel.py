@@ -6,16 +6,15 @@ port, safe under xdist).
 Each rank trains the DTU recipe at ``tpu.camera_batch = 4`` (2 views a
 rank a step) for 4 steps with a densify after step 3, from the JAX
 Trainer's init state with anisotropic scales and random rotations
-(``test_torch_camera_batch.anisotropic``), then runs the standalone
-``make_camera_dp_step`` on its camera of a 2-camera batch. Held: both
-ranks' states identical, exactly; against the single-process port and the
-JAX Trainer at camera_batch 4 (its mesh of 4 virtual devices), per-step
-losses at rtol 1e-4, the camera draws equal, the active masks exactly and
-the state after every step at 1e-5 (but for Adam's rounding-noise
-elements, ``test_torch_camera_batch.steps_close_but_noise``); only rank
-0 wrote files; the standalone step against the JAX package's
-``make_camera_dp_step`` on a 2-device mesh.
-``scene_dispatch`` returns its results in order, sequential and parallel.
+(``test_torch_camera_batch.anisotropic``): the trainer's own camera-DP
+step, the port's only one. Held: both ranks' states identical, exactly;
+against the single-process port and the JAX Trainer at camera_batch 4 (its
+mesh of 4 virtual devices), per-step losses at rtol 1e-4, the camera draws
+equal, the active masks exactly and the state after every step at 1e-5
+(but for Adam's rounding-noise elements,
+``test_torch_camera_batch.steps_close_but_noise``); only rank 0 wrote
+files. ``scene_dispatch`` returns its results in order, sequential and
+parallel; the process-group helpers work without a group.
 """
 
 import json
@@ -90,8 +89,8 @@ def train_port(scene, logdir, start):
 
 
 def _rank_main(rank, store, scene, out_dir, inputs):
-    """One gloo rank: the trainer at camera_batch K, then the standalone
-    step on this rank's camera; its results pickled under ``out_dir``."""
+    """One gloo rank: the trainer at camera_batch K; its results pickled
+    under ``out_dir``."""
     torch.set_num_threads(1)
     dp.init_process_group(rank, WORLD, f"file://{store}", "cpu")
     try:
@@ -99,18 +98,6 @@ def _rank_main(rank, store, scene, out_dir, inputs):
             inp = pickle.load(f)
         res = dict(zip(("state", "history", "draws", "states"), train_port(
             scene, os.path.join(out_dir, f"log{rank}"), inp["start"])))
-        # the standalone step on this rank's share of a 2-camera batch
-        from vcr_gaus_tpu_torch.data.cameras import CameraArrays
-        from vcr_gaus_tpu_torch.render.renderer import RenderConfig
-        batch = dp.stack_cameras([CameraArrays(**{
-            k: torch.tensor(v) for k, v in cam.items()})
-            for cam in inp["cams"]])
-        step = dp.make_camera_dp_step(
-            RenderConfig(width=64, height=48, ch_sem=0,
-                         depth_mode="traditional"), scene_extent=100.0)
-        st, loss = step(state_from_arrays(inp["synthetic"], "cpu"),
-                        dp.shard_camera_batch(batch), torch.zeros(3), 1e-3)
-        res["dp_step"] = (state_to_arrays(st), float(loss))
         res["world"] = dp.world()
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
@@ -128,17 +115,11 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The JAX Trainer and the standalone JAX step, the single-process
-    port and the two gloo ranks, from the same states."""
-    import jax
-    import jax.numpy as jnp
-
-    import __graft_entry__ as g
+    """The JAX Trainer, the single-process port and the two gloo ranks,
+    from the same state."""
     from test_torch_camera_batch import anisotropic
     from test_torch_train import jax_state_arrays
     from vcr_gaus_tpu.config import Config as JConfig
-    from vcr_gaus_tpu.parallel import dp as JDP
-    from vcr_gaus_tpu.render.renderer import RenderConfig as JRCfg
     from vcr_gaus_tpu.train import trainer as JT
 
     root = tmp_path_factory.mktemp("parallel")
@@ -156,27 +137,9 @@ def runs(tmp_path_factory):
         jax_steps.append(({k: float(v) for k, v in losses.items()},
                           jax_state_arrays(jtr.state)))
 
-    # the standalone step: 2 cameras on a 2-device mesh, the synthetic
-    # state made anisotropic as above
-    rng = np.random.default_rng(2)
-    syn = g._synthetic_state(n=128, cap=256)
-    syn = syn._replace(params=syn.params._replace(
-        log_scale=syn.params.log_scale + jnp.asarray(
-            rng.uniform(-0.7, 0.7, (256, 3)), jnp.float32),
-        quat=jnp.asarray(rng.normal(size=(256, 4)), jnp.float32)))
-    cams = [g._synthetic_camera(idx=i, seed=i) for i in range(WORLD)]
-    mesh = JDP.data_mesh(WORLD)
-    jstep = JDP.make_camera_dp_step(
-        JRCfg(width=64, height=48, ch_sem=0, depth_mode="traditional",
-              entry_budget=1 << 13), mesh, scene_extent=100.0)
-    jst, jloss = jstep(JDP.replicate(syn, mesh), JDP.shard_camera_batch(
-        JDP.stack_cameras(cams), mesh), jnp.zeros(3), jnp.asarray(1e-3))
-
     inputs = str(root / "inputs.pkl")
     with open(inputs, "wb") as f:
-        pickle.dump({"start": start, "synthetic": jax_state_arrays(syn),
-                     "cams": [{k: np.asarray(v) for k, v in
-                               c._asdict().items()} for c in cams]}, f)
+        pickle.dump({"start": start}, f)
     out = root / "ranks"
     out.mkdir()
     torch.multiprocessing.spawn(
@@ -187,9 +150,7 @@ def runs(tmp_path_factory):
         with open(out / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
     single = train_port(scene, root / "single", start)
-    return dict(jax=(jtr, jax_steps), jax_step=(jax_state_arrays(jst),
-                                                float(jloss)),
-                single=single, ranks=ranks, out=out)
+    return dict(jax=(jtr, jax_steps), single=single, ranks=ranks, out=out)
 
 
 def leaves(tree):
@@ -205,9 +166,6 @@ def test_ranks_stay_identical(runs):
         np.testing.assert_array_equal(x, y)
     assert a["history"] == b["history"]
     assert a["draws"] == b["draws"]
-    for x, y in zip(leaves(a["dp_step"][0]), leaves(b["dp_step"][0])):
-        np.testing.assert_array_equal(x, y)
-    assert a["dp_step"][1] == b["dp_step"][1]
 
 
 def check_against(rank, history, draws, states):
@@ -247,16 +205,6 @@ def test_only_rank_zero_writes(runs):
             "point_cloud"} <= set(os.listdir(log0))
     assert (log0 / "point_cloud" / "iteration_4" / "point_cloud.ply").exists()
     assert not (out / "log1").exists()
-
-
-def test_camera_dp_step_matches_jax(runs):
-    from test_torch_camera_batch import steps_close_but_noise
-    want, want_loss = runs["jax_step"]
-    got, loss = runs["ranks"][0]["dp_step"]
-    assert loss == pytest.approx(want_loss, rel=1e-5)
-    steps_close_but_noise([got], [want])
-    start = runs["ranks"][0]["dp_step"][0]["step"]
-    assert start == 1 and np.abs(got["params"]["xyz"]).max() > 0
 
 
 @pytest.mark.parametrize("parallel", [False, True])

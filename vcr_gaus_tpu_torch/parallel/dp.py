@@ -10,9 +10,9 @@ Two modes, as in the JAX package:
     dummy's gradient and the losses are all-reduced as a mean (one
     flattened ``all_reduce``), radii, visibility and the entry count as a
     maximum, before the Adam update that every rank runs on identical
-    inputs. ``make_camera_dp_step`` is the standalone l1 + SSIM step;
-    the trainer's own step (``train.trainer.make_train_step``) reduces
-    through ``reduce_mean`` and ``reduce_max``.
+    inputs. The one camera-DP step is the trainer's
+    (``train.trainer.make_train_step`` with ``distributed=True``), which
+    reduces through ``reduce_mean`` and ``reduce_max``.
 
 A process group is joined with ``init_process_group``: NCCL for CUDA
 devices, gloo for the CPU, and no fall back from one to the other.
@@ -25,11 +25,6 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
-
-from ..data.cameras import CameraArrays
-from ..models import gaussians as GM
-from ..render.renderer import RenderConfig, render
-from ..train import losses as L
 
 
 def backend_for(device: str | torch.device) -> str:
@@ -77,27 +72,6 @@ def barrier() -> None:
     """Wait for every rank (nothing without a process group)."""
     if initialized():
         dist.barrier()
-
-
-def stack_cameras(cams: list[CameraArrays]) -> CameraArrays:
-    """Cameras of one size as one CameraArrays with a leading batch axis."""
-    return CameraArrays(*(torch.stack(xs) for xs in zip(*cams)))
-
-
-def shard_camera_batch(cams: CameraArrays, rank: int | None = None,
-                       world_size: int | None = None) -> CameraArrays:
-    """This rank's contiguous slice of a stacked camera batch, as the JAX
-    package's ``P(axis)`` sharding gives chip r its slice. The batch must
-    be a multiple of the world size."""
-    r, w = world()
-    rank = r if rank is None else rank
-    world_size = w if world_size is None else world_size
-    batch = cams.viewmatrix.shape[0]
-    if batch % world_size:
-        raise ValueError(f"camera batch {batch} not divisible by the world "
-                         f"size {world_size}")
-    k = batch // world_size
-    return CameraArrays(*(x[rank * k:(rank + 1) * k] for x in cams))
 
 
 def leaves(obj) -> list[torch.Tensor]:
@@ -158,43 +132,6 @@ def reduce_max(radii: torch.Tensor, visibility: torch.Tensor,
     dist.all_reduce(flat, op=dist.ReduceOp.MAX)
     return (flat[:n].view(radii.shape).to(radii.dtype),
             flat[n:2 * n].view(visibility.shape) > 0, int(flat[-1].item()))
-
-
-def make_camera_dp_step(rcfg: RenderConfig, weights: dict | None = None,
-                        scene_extent: float = 1e9):
-    """The standalone data-parallel step of the JAX package:
-    step(state, cam_shard, bg, lr_xyz) -> (state, loss). ``cam_shard`` is
-    this rank's share of a stacked batch (``shard_camera_batch``), one
-    camera per rank; the l1 + SSIM loss at SH degree 0, its gradient
-    all-reduced as a mean, then Adam with fixed learning rates, so that
-    the state stays identical on every rank."""
-    weights = weights or {"l1": 0.8, "ssim": 0.2}
-
-    def step(state: GM.GaussianState, cam_shard: CameraArrays,
-             bg: torch.Tensor, lr_xyz: float):
-        cam = CameraArrays(*(x[0] for x in cam_shard))
-        params = state.params.map(lambda p: p.detach().requires_grad_(True))
-        st = state.replace(params=params)
-        out = render(st, cam, rcfg, bg, sh_degree=0,
-                     scene_extent=scene_extent)
-        total = weights.get("l1", 0) * L.l1_loss(out["render"], cam.image)
-        if weights.get("ssim", 0):
-            total = total + weights["ssim"] * (
-                1 - L.ssim(out["render"], cam.image))
-        tensors = list(params.as_dict().values())
-        grads = torch.autograd.grad(total, tensors, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(tensors, grads)]
-        *grads, loss = reduce_mean(grads + [total.detach()])
-        with torch.no_grad():
-            g_params = GM.mask_grads(GM.GaussianParams(*grads), state.active)
-            lrs = GM.LearningRates(xyz=lr_xyz, f_dc=0.0025,
-                                   f_rest=0.0025 / 20, opacity=0.05,
-                                   scaling=0.005, rotation=0.001,
-                                   obj_dc=0.0025)
-            return GM.adam_step(state, g_params, lrs), loss
-
-    return step
 
 
 def scene_dispatch(scene_fns: list[Callable[[torch.device], object]],
