@@ -32,7 +32,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              a ragged state 4 B off alignment, an SH-0 state, and 2^22
              (S 2) and 2^23 (S 0) slots, with about half the slots
              inactive; at the last two its time, the plain chain's and
-             the byte bound;
+             the byte bound; then (phase ssim) the SSIM pair
+             (csrc/ssim.cu) against its plain version, the banded matrix
+             products, on uniform images (the value at rtol 1e-5, the
+             gradient at 1e-5 of max|g|) and, with the plain version, against
+             the float64 separable reference on rendered-like ones (2e-4),
+             at ragged small shapes and the benchmark cells' 1600x1200,
+             1600x1063 and 1600x900; there the value and gradient twice,
+             bit for bit, and the kernels' times beside their byte bounds,
+             the plain version's and the depthwise conv2d SSIM's, and the
+             pair's host and device time through autograd;
   3. slice   the render path at full width: a synthetic COLMAP scene of 8
              1600x1200 views and a 1M-Gaussian SH-degree-3 PLY, rendered and
              scored by vcr_gaus_tpu_torch.render_eval.main with
@@ -930,6 +939,246 @@ def phase_adam(device, cases=(("unaligned", 4099, 1, 3, False, False),
     return dict(max_abs_err=worst, timings=timings)
 
 
+# the SSIM kernels (csrc/ssim.cu) against their plain version, the banded
+# matrix products: the value at rtol SSIM_TOL and the gradient of img1 at
+# SSIM_TOL times its max|g|, on uniform images, where float32 computes the
+# SSIM well. On rendered-like images both versions are held to the float64
+# reference at SSIM_F64_TOL instead: there sigma^2 = E[x^2] - mu^2 cancels
+# in float32, and the error it leaves, about eps E[x^2] / C2 (3e-5 of the
+# value and of max|g| for E[x^2] = 0.5), is as large in either version, so
+# they differ from each other by as much as from the reference
+SSIM_TOL = 1e-5
+SSIM_F64_TOL = 2e-4
+# the benchmark cells' image sizes (C, H, W)
+SSIM_CELLS = {"dtu": (3, 1200, 1600), "m360": (3, 1063, 1600),
+              "tnt": (3, 900, 1600)}
+
+
+def ssim_images(shape, seed=0, rendered=False) -> tuple:
+    """(img1, img2), float32 numpy of ``shape`` (C, H, W): two uniform
+    images in [0, 1], or, ``rendered``, a render and its ground truth:
+    smooth bands with a texture (0.05) whose upper quarter is flat, and
+    the render 0.02 from it, both clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    c, h, w = shape
+    if not rendered:
+        return (rng.uniform(0, 1, shape).astype(np.float32),
+                rng.uniform(0, 1, shape).astype(np.float32))
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    gt = np.stack([0.5 + 0.3 * np.sin(6 * xx + 3 * k) * np.cos(4 * yy + k)
+                   for k in range(c)]) + 0.05 * rng.normal(size=shape)
+    gt[:, :h // 4] = 0.7
+    img = gt + 0.02 * rng.normal(size=shape)
+    return (np.clip(img, 0, 1).astype(np.float32),
+            np.clip(gt, 0, 1).astype(np.float32))
+
+
+def ssim_reference(img1, img2) -> tuple:
+    """The SSIM and its gradient in ``img1`` as csrc/ssim.cu computes
+    them, in float64: a direct separable blur of the 11 taps (vertical,
+    then horizontal, zero outside the image), the kernel's closed-form
+    maps, and the blur as its own adjoint. Returns (value, gradient), 0-dim
+    and (C, H, W) float64 tensors on the images' device."""
+    import torch
+
+    from vcr_gaus_tpu_torch.train import losses as L
+    x, y = img1.double(), img2.double()
+    taps = L.ssim_window().tolist()
+    r = len(taps) // 2
+    h, w = x.shape[-2:]
+
+    def blur(a):
+        a = torch.nn.functional.pad(a, (0, 0, r, r))
+        a = sum(t * a[:, k:k + h] for k, t in enumerate(taps))
+        a = torch.nn.functional.pad(a, (r, r))
+        return sum(t * a[:, :, k:k + w] for k, t in enumerate(taps))
+
+    mu1, mu2 = blur(x), blur(y)
+    s1 = blur(x * x) - mu1 * mu1
+    s2 = blur(y * y) - mu2 * mu2
+    s12 = blur(x * y) - mu1 * mu2
+    C1, C2 = 0.01 ** 2, 0.03 ** 2
+    a1, a2 = 2 * mu1 * mu2 + C1, 2 * s12 + C2
+    b1, b2 = mu1 * mu1 + mu2 * mu2 + C1, s1 + s2 + C2
+    d = b1 * b2
+    s = a1 * a2 / d
+    dm = 2 * mu2 * (a2 - a1) / d + 2 * mu1 * s * (1 / b2 - 1 / b1)
+    grad = (blur(dm) + 2 * x * blur(-s / b2) + y * blur(2 * a1 / d)
+            ) / x.numel()
+    return s.mean(), grad
+
+
+def ssim_value_and_grad(fn, img1, img2) -> tuple:
+    """(fn(img1, img2), its gradient in img1) through autograd."""
+    import torch
+    x = img1.detach().clone().requires_grad_(True)
+    value = fn(x, img2)
+    (grad,) = torch.autograd.grad(value, x)
+    return value.detach(), grad
+
+
+def compare_ssim(img1, img2, device, rendered=False) -> dict:
+    """The kernels (``losses.ssim``) against the plain version
+    (``ssim_torch``), both on the card, and both against the float64
+    reference (``ssim_reference``) from the numpy images ``img1``,
+    ``img2``: relative value errors and gradient errors over max|g|.
+    Uniform images hold the kernels to the plain version at SSIM_TOL,
+    ``rendered`` ones both versions to the reference at SSIM_F64_TOL;
+    raises where a limit is missed."""
+    import torch
+
+    from vcr_gaus_tpu_torch.train import losses as L
+    x, y = (torch.tensor(a, device=device) for a in (img1, img2))
+    want_v, want_g = ssim_reference(x, y)
+    plain_v, plain_g = ssim_value_and_grad(L.ssim_torch, x, y)
+    got_v, got_g = ssim_value_and_grad(L.ssim, x, y)
+
+    def errors(v, g, ref_v, ref_g):
+        scale = float(ref_g.abs().max())
+        return (abs(float(v) - float(ref_v)) / abs(float(ref_v)),
+                float((g.double() - ref_g.double()).abs().max()) / scale)
+
+    out = dict(zip(("value", "grad"), errors(got_v, got_g, plain_v,
+                                             plain_g)))
+    out.update(zip(("value_f64", "grad_f64"),
+                   errors(got_v, got_g, want_v, want_g)))
+    out.update(zip(("plain_value_f64", "plain_grad_f64"),
+                   errors(plain_v, plain_g, want_v, want_g)))
+    keys, tol = ((("value_f64", "grad_f64", "plain_value_f64",
+                   "plain_grad_f64"), SSIM_F64_TOL) if rendered
+                 else (("value", "grad"), SSIM_TOL))
+    bad = {k: out[k] for k in keys if not out[k] <= tol}
+    if bad:
+        raise AssertionError(f"SSIM {tuple(img1.shape)}, rendered "
+                             f"{rendered}: {bad} over {tol} ({out})")
+    return out
+
+
+def ssim_bytes(shape) -> tuple[int, int]:
+    """The least bytes the SSIM and its gradient move for a (C, H, W)
+    image: the forward reads the two images (8 B a pixel), the backward
+    reads them again and writes the gradient (12 B). Not counted: the
+    three maps the kernels' design passes from the forward to the
+    backward (12 B written, 12 B read back), which recomputing the
+    forward's blurs in the backward would spare."""
+    n = math.prod(shape)
+    return 8 * n, 12 * n
+
+
+def pair_host_account(pair, parts, iters=20) -> dict:
+    """Where the time of ``pair`` (the SSIM's value and gradient through
+    autograd) goes: the host's time to enqueue one call, the card idle at
+    its start (``pair_host_ms``), and that of ``parts`` (the two kernels'
+    wrappers called without autograd, ``parts_host_ms``), medians of
+    perf_counter; then from a torch.profiler trace of ``iters`` calls the
+    device's kernel time a call (``pair_device_ms``) and the host ops'
+    self time a call, largest first (``host_ops_ms``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def host_ms(fn):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    out = dict(pair_host_ms=host_ms(pair), parts_host_ms=host_ms(parts))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            pair()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out["pair_device_ms"] = sum(
+        e.self_device_time_total for e in events
+        if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    out["host_ops_ms"] = sorted(
+        ([e.key[:60], e.self_cpu_time_total / 1e3 / iters] for e in events
+         if e.device_type == DeviceType.CPU), key=lambda kv: -kv[1])[:8]
+    return out
+
+
+def phase_ssim(device, small=((1, 37, 53), (3, 45, 29), (3, 7, 13),
+                              (1, 33, 64)),
+               cells=SSIM_CELLS, iters=20) -> dict:
+    """The SSIM kernels (``csrc/ssim.cu``) against their plain version
+    and the float64 reference (``compare_ssim``) at ragged small shapes
+    and at the benchmark cells' sizes, uniform and rendered-like; at the
+    cells' sizes the value and the gradient twice, bit for bit, then the
+    times (CUDA events) of the forward kernel, the backward kernel, the
+    pair through autograd, the plain version's forward and backward (the
+    banded GEMMs) and the depthwise ``conv2d`` SSIM of
+    ``gsbench/reference/losses.py`` (the ``library_ms`` yardstick; the
+    port never calls it) with its backward, beside the byte bounds, and
+    where the pair's time through autograd goes
+    (``pair_host_account``)."""
+    import torch
+
+    from gsbench.reference import losses as REF
+    from vcr_gaus_tpu_torch.train import losses as L
+
+    worst = dict(value=0.0, grad=0.0, value_f64=0.0, grad_f64=0.0)
+
+    def check(shape, seed, rendered=False):
+        err = compare_ssim(*ssim_images(shape, seed, rendered), device,
+                           rendered)
+        for k in worst:
+            worst[k] = max(worst[k], err[k])
+        return err
+
+    for i, shape in enumerate(small):
+        emit(phase="ssim", shape=shape, **check(shape, i))
+    timings = []
+    for name, shape in cells.items():
+        row = dict(cell=name, shape=shape, uniform=check(shape, 10),
+                   rendered=check(shape, 11, rendered=True))
+        x, y = (torch.tensor(a, device=device)
+                for a in ssim_images(shape, 12, rendered=True))
+        first = ssim_value_and_grad(L.ssim, x, y)
+        again = ssim_value_and_grad(L.ssim, x, y)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"SSIM {name}: two calls differ")
+        _, maps = L.ssim_forward(x, y, True)
+        g = torch.ones((), device=device)
+        xg = x.clone().requires_grad_(True)
+        fwd_b, bwd_b = ssim_bytes(shape)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                REF.ssim(xg, y), xg), iters=iters)
+        row.update(
+            fwd_ms=cuda_ms(lambda: L.ssim_forward(x, y, True), iters=iters),
+            bwd_ms=cuda_ms(lambda: L.ssim_backward(g, x, y, *maps),
+                           iters=iters),
+            pair_ms=cuda_ms(lambda: torch.autograd.grad(L.ssim(xg, y), xg),
+                            iters=iters),
+            plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                L.ssim_torch(xg, y), xg), iters=iters),
+            library_ms=lib_ms,
+            fwd_bytes=fwd_b, bwd_bytes=bwd_b,
+            fwd_bound_ms=1e3 * fwd_b / PEAK_BYTES,
+            bwd_bound_ms=1e3 * bwd_b / PEAK_BYTES)
+        row["x_bound"] = row["pair_ms"] / (row["fwd_bound_ms"]
+                                           + row["bwd_bound_ms"])
+        row.update(pair_host_account(
+            lambda: torch.autograd.grad(L.ssim(xg, y), xg),
+            lambda: L.ssim_backward(g, x, y,
+                                    *L.ssim_forward(x, y, True)[1]),
+            iters=iters))
+        emit(phase="ssim", **row)
+        timings.append(row)
+        del x, y, xg, maps, first, again
+        torch.cuda.empty_cache()
+    return dict(worst=worst, timings=timings)
+
+
 def write_colmap_views(scene, width, height, n_views, image_fn,
                        poses=None):
     """COLMAP cameras of ``n_views`` views under ``scene`` (fovx 0.9, fovy
@@ -1451,8 +1700,8 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         # view in each of the two final sweeps (the last iteration's test
         # sweep and the CLI's evaluation), and one for the test sweep's
         # panel
-        want = with_preprocess({"rasterize_fwd": iters + 2 * n_views + 1,
-                                "rasterize_bwd": iters, "adam_stats": iters})
+        want = with_implied({"rasterize_fwd": iters + 2 * n_views + 1,
+                             "rasterize_bwd": iters, "adam_stats": iters})
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         hist = trainer.history
@@ -1500,9 +1749,9 @@ def phase_train(device, n_gauss=1_000_000, width=1600, height=1200,
         state, _, aux = one(2, state)
         torch.cuda.synchronize()
         per_step = dict(R.LAUNCHES)
-        if per_step != with_preprocess({"rasterize_fwd": 1,
-                                        "rasterize_bwd": 1,
-                                        "adam_stats": 1}):
+        if per_step != with_implied({"rasterize_fwd": 1,
+                                     "rasterize_bwd": 1,
+                                     "adam_stats": 1}):
             raise AssertionError(f"launches per step {per_step}")
         step_ms, step_losses = [], []
         for i in range(timed_steps):
@@ -1688,8 +1937,8 @@ def camera_batch_checks(device, trainer, state, scene, root, lr,
     state, _, _ = step(state, pair(2), bg, lr, 3, gates)
     torch.cuda.synchronize()
     per_step = dict(R.LAUNCHES)
-    if per_step != with_preprocess({"rasterize_fwd": 2, "rasterize_bwd": 2,
-                                    "adam_stats": 1}):
+    if per_step != with_implied({"rasterize_fwd": 2, "rasterize_bwd": 2,
+                                 "adam_stats": 1}):
         raise AssertionError(f"two-view step launches {per_step}")
     step_ms, step_losses = [], []
     for i in range(timed_steps):
@@ -1779,9 +2028,9 @@ def camera_batch_checks(device, trainer, state, scene, root, lr,
     # two forward and two backward launches and one update a step; the
     # last iteration's test sweep (its views and the panel) and the CLI's
     # evaluation
-    want = with_preprocess({"rasterize_fwd": 2 * cli_iters + 2 * n_eval + 1,
-                            "rasterize_bwd": 2 * cli_iters,
-                            "adam_stats": cli_iters})
+    want = with_implied({"rasterize_fwd": 2 * cli_iters + 2 * n_eval + 1,
+                         "rasterize_bwd": 2 * cli_iters,
+                         "adam_stats": cli_iters})
     if cli_launches != want:
         raise AssertionError(f"CLI launches {cli_launches}, expected {want}")
     notice = [ln for ln in text.splitlines() if ln.startswith("[debug]")]
@@ -1986,7 +2235,7 @@ def phase_viewer(device, trainer, scene, root, n_frames=12, pause_s=0.3,
         trainer._gui, trainer._gui_paused = None, False
     torch.cuda.synchronize()
     launches = dict(R.LAUNCHES)
-    if launches != with_preprocess({"rasterize_fwd": len(msgs)}):
+    if launches != with_implied({"rasterize_fwd": len(msgs)}):
         raise AssertionError(f"viewer launches {launches}, expected one "
                              f"forward launch for each of {len(msgs)} "
                              "frames")
@@ -2107,10 +2356,10 @@ def phase_viewer(device, trainer, scene, root, n_frames=12, pause_s=0.3,
     cli_client.join()
     cli_launches = dict(R.LAUNCHES)
     n_frames_cli = len(cli_client.frames)
-    want = with_preprocess({"rasterize_fwd": cli_iters + n_frames_cli
-                            + 2 * eval_views(tr) + 1,
-                            "rasterize_bwd": cli_iters,
-                            "adam_stats": cli_iters})
+    want = with_implied({"rasterize_fwd": cli_iters + n_frames_cli
+                         + 2 * eval_views(tr) + 1,
+                         "rasterize_bwd": cli_iters,
+                         "adam_stats": cli_iters})
     if n_frames_cli != len(cli_msgs) or cli_launches != want:
         raise AssertionError(f"CLI with the viewer: {n_frames_cli} frames, "
                              f"launches {cli_launches}, expected {want}")
@@ -2166,17 +2415,19 @@ def schedule_launches(trainer, first: int, last: int,
     return want
 
 
-def with_preprocess(want: dict[str, int]) -> dict[str, int]:
+def with_implied(want: dict[str, int]) -> dict[str, int]:
     """``want``, the compositing kernels' launches of a run through the
-    renderer, with the preprocess kernels' it implies: one forward for each
-    view rendered or swept for stats, one backward for each view
-    differentiated."""
+    renderer, with the preprocess and SSIM kernels' it implies: a
+    preprocess forward for each view rendered or swept for stats; a
+    preprocess backward and an SSIM forward and backward for each view
+    differentiated (the training step's loss)."""
     out = dict(want)
     fwd = want.get("rasterize_fwd", 0) + want.get("rasterize_stats", 0)
     if fwd:
         out["preprocess_fwd"] = fwd
     if want.get("rasterize_bwd", 0):
-        out["preprocess_bwd"] = want["rasterize_bwd"]
+        for k in ("preprocess_bwd", "ssim_fwd", "ssim_bwd"):
+            out[k] = want["rasterize_bwd"]
     return out
 
 
@@ -2282,7 +2533,7 @@ def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
         want = schedule_launches(trainer, 1, iters, n_full)
         # the CLI's final evaluation renders every train view
         want["rasterize_fwd"] += eval_views(trainer)
-        want = with_preprocess(want)
+        want = with_implied(want)
         if launches != want:
             raise AssertionError(f"launches {launches}, expected {want}")
         hist = trainer.history
@@ -2336,7 +2587,7 @@ def phase_host_loop(device, n_gauss=1_000_000, width=1600, height=1200,
         r_launches = dict(R.LAUNCHES)
         r_want = schedule_launches(resumed, 21, 20 + resume_iters, n_full)
         r_want["rasterize_fwd"] += eval_views(resumed)
-        r_want = with_preprocess(r_want)
+        r_want = with_implied(r_want)
         got_iters = [h["iter"] for h in resumed.history]
         if (got_iters != list(range(21, 21 + resume_iters))
                 or r_launches != r_want):
@@ -3064,7 +3315,7 @@ def phase_train_tnt(device, n_gauss=1_000_000, width=TNT_WIDTH,
         n_full = len(trainer.scene.train_cameras)
         want = schedule_launches(trainer, 1, iters, n_full)
         want["rasterize_fwd"] += eval_views(trainer)
-        want = with_preprocess(want)
+        want = with_implied(want)
         if n_box != 198 or launches != want:
             raise AssertionError(f"launches {launches}, expected {want} "
                                  f"({n_box} box views a densify)")
@@ -3108,7 +3359,7 @@ def phase_train_tnt(device, n_gauss=1_000_000, width=TNT_WIDTH,
         got_iters = [h["iter"] for h in resumed.history]
         r_want = schedule_launches(resumed, 21, 20 + resume_iters, n_full)
         r_want["rasterize_fwd"] += eval_views(resumed)
-        r_want = with_preprocess(r_want)
+        r_want = with_implied(r_want)
         if (len(restored) != 1 or not trees_equal(restored[0], extra["net"])
                 or got_iters != list(range(21, 21 + resume_iters))
                 or r_launches != r_want):
@@ -3531,7 +3782,7 @@ def phase_eval_tnt(device, n_gauss=1_000_000, width=TNT_WIDTH,
             raise AssertionError(f"ladder exits {rungs}, expected [3, 0]")
         mesh_launches = dict(R.LAUNCHES)
         n_fused = len(range(0, n_views, 3))
-        if mesh_launches != with_preprocess({"rasterize_fwd": n_fused}):
+        if mesh_launches != with_implied({"rasterize_fwd": n_fused}):
             raise AssertionError(f"mesh path launched {mesh_launches}, "
                                  f"expected one per fused view")
         mesh_offset, mesh_verts = offset(mesh_path)
@@ -4187,6 +4438,7 @@ def main() -> int:
 
     worst, worst_bwd, worst_stats, pre = phase_kernel(device)
     ad = phase_adam(device)
+    ss = phase_ssim(device)
     sl = phase_slice(device)
     if sl["launches"] != 8:
         raise AssertionError(f"rasterize_fwd launched {sl['launches']} times "
@@ -4279,7 +4531,22 @@ def main() -> int:
         "ms": [t["ms"] for t in ad["timings"]],
         "plain_ms": [t["plain_ms"] for t in ad["timings"]],
         "bound_ms": [t["bound_ms"] for t in ad["timings"]],
-        "bound_by": "bytes", "library_ms": None}])
+        "bound_by": "bytes", "library_ms": None}] + [{
+        "name": f"ssim_{d}", "route": "cuda",
+        "source": "vcr_gaus_tpu_torch/csrc/ssim.cu",
+        "replaces": "none: the banded-matrix SSIM's GEMMs",
+        "launches": tr["launches"].get(f"ssim_{d}", 0),
+        "launches_train_tnt": tnt_launches.get(f"ssim_{d}", 0),
+        "max_rel_err": ss["worst"],
+        "cells": [t["cell"] for t in ss["timings"]],
+        "ms": [t[f"{d}_ms"] for t in ss["timings"]],
+        "pair_ms": [t["pair_ms"] for t in ss["timings"]],
+        "pair_host_ms": [t["pair_host_ms"] for t in ss["timings"]],
+        "plain_ms": [t["plain_ms"] for t in ss["timings"]],
+        "bound_ms": [t[f"{d}_bound_ms"] for t in ss["timings"]],
+        "bound_by": "bytes",
+        "library_ms": [t["library_ms"] for t in ss["timings"]]}
+        for d in ("fwd", "bwd")])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

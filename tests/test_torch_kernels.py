@@ -12,10 +12,12 @@ import os
 import pytest
 import torch
 
-from chip_smoke import (ADAM_LRS, BWD_SATURATED, adam_inputs, compare_adam,
-                        compare_backward, compare_kernel, compare_preprocess,
-                        compare_probe, compare_stats, preprocess_scene,
-                        saturated_scene, splat_scene, threshold_scene)
+from chip_smoke import (ADAM_LRS, BWD_SATURATED, SSIM_CELLS, adam_inputs,
+                        compare_adam, compare_backward, compare_kernel,
+                        compare_preprocess, compare_probe, compare_ssim,
+                        compare_stats, preprocess_scene, saturated_scene,
+                        splat_scene, ssim_images, ssim_value_and_grad,
+                        threshold_scene, with_implied)
 from vcr_gaus_tpu_torch.ops import microprobe as M
 
 pytestmark = pytest.mark.cuda
@@ -252,6 +254,105 @@ def test_preprocess_rejects_mixed_devices_and_strides(cuda):
     g = torch.zeros((300, PF.feature_dim(2)), device="cpu")
     with pytest.raises(ValueError):
         PF.preprocess_backward(g, lv, cam, var)
+
+
+@pytest.mark.parametrize("shape", [*SSIM_CELLS.values(), (1, 37, 53),
+                                   (3, 45, 29), (3, 7, 13), (1, 33, 64),
+                                   (1, 1200, 1600)])
+def test_ssim_matches_plain(cuda, shape):
+    # compare_ssim holds the kernels' value at rtol 1e-5 and their gradient
+    # at 1e-5 of max|g| to the plain banded-matrix version on the card;
+    # the benchmark cells' sizes, ragged odd ones (one under the window,
+    # the rest with a width no multiple of 4), C = 1 and 3
+    err = compare_ssim(*ssim_images(shape, seed=shape[1]), cuda)
+    assert err["value"] <= 1e-5 and err["grad"] <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [SSIM_CELLS["dtu"], (3, 45, 29)])
+def test_ssim_rendered_images_against_float64(cuda, shape):
+    # a render and its ground truth with a flat quarter, where float32's
+    # variance cancels: the kernels and the plain version each within
+    # 2e-4 of the float64 reference (compare_ssim raises)
+    compare_ssim(*ssim_images(shape, seed=1, rendered=True), cuda,
+                 rendered=True)
+
+
+def test_ssim_repeats_bit_for_bit(cuda):
+    from vcr_gaus_tpu_torch.train import losses as L
+    x, y = (torch.tensor(a, device=cuda)
+            for a in ssim_images(SSIM_CELLS["m360"], 2, rendered=True))
+    first = ssim_value_and_grad(L.ssim, x, y)
+    again = ssim_value_and_grad(L.ssim, x, y)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1],
+                                                           again[1])
+
+
+@pytest.mark.parametrize("ground_truth", ["u8", "float32", "crop"])
+def test_ssim_launches_once_a_training_step(cuda, ground_truth):
+    """One DTU training step on the card launches the SSIM forward and
+    backward once each, with a ground truth that the scene readers' layout
+    (a transposed (H, W, 3) array: u8 as the COLMAP reader's, float32 as
+    the Blender reader's, which a float32 conversion would alias) leaves
+    non-contiguous on the host and that uploads contiguous; or with the
+    losses of the top half of the view's rows alone (gsbench's
+    ``half_batch`` fault), strided views the losses lay out anew."""
+    import contextlib
+
+    import numpy as np
+
+    from gsbench import faults as FLT
+    from vcr_gaus_tpu_torch.config import Config
+    from vcr_gaus_tpu_torch.data.cameras import Camera
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.render.renderer import RenderConfig
+    from vcr_gaus_tpu_torch.train import trainer as T
+
+    cfg = Config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "dtu", "base.yaml"))
+    rng = np.random.default_rng(3)
+    nrm = rng.normal(size=(3, 48, 64)).astype(np.float32)
+    hwc = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    if ground_truth == "float32":
+        hwc = hwc.astype(np.float32) / 255
+    view = Camera(colmap_id=0, idx=0, image_name="v", R=np.eye(3),
+                  T=np.zeros(3), fovx=0.9, fovy=0.7, width=64, height=48,
+                  image=hwc.transpose(2, 0, 1),
+                  normal=nrm / np.linalg.norm(nrm, axis=0))
+    state, trans, scale = shell_state(cuda, n=2000)
+    step = T.make_train_step(cfg, RenderConfig(64, 48),
+                             T.recipe_weights(cfg), 3.0, trans, scale)
+    arrays = view.arrays(cuda)
+    assert arrays.image.dtype == torch.float32
+    assert arrays.image.is_contiguous()
+    R.reset_launch_counts()
+    with (FLT.planted("half_batch", None) if ground_truth == "crop"
+          else contextlib.nullcontext()):
+        _, losses, _ = step(state, arrays, torch.zeros(3, device=cuda),
+                            1e-3, 3, T.Gates(*(True,) * 5))
+    torch.cuda.synchronize()
+    assert dict(R.LAUNCHES) == with_implied({"rasterize_fwd": 1,
+                                             "rasterize_bwd": 1,
+                                             "adam_stats": 1})
+    assert 0 < float(losses["ssim"]) < 2
+
+
+def test_ssim_rejects_what_the_kernels_do_not_take(cuda):
+    from vcr_gaus_tpu_torch.ops import rasterize as R
+    from vcr_gaus_tpu_torch.train import losses as L
+    x, y = (torch.rand(3, 20, 24, device=cuda) for _ in range(2))
+    R.reset_launch_counts()
+    bad = {"float64": (x.double(), y.double()),
+           "non-contiguous": (x.transpose(1, 2), y.transpose(1, 2)),
+           "img2 on the CPU": (x, y.cpu()),
+           "img1 on the CPU": (x.cpu(), y),
+           "img2 requires grad": (x, y.clone().requires_grad_(True)),
+           "shapes differ": (x, y[:, :, :20].contiguous())}
+    for a, b in bad.values():
+        with pytest.raises(ValueError):
+            L.ssim(a, b)
+    assert not R.LAUNCHES
+    assert float(L.ssim(x, x)) == pytest.approx(1.0, abs=1e-6)
+    assert dict(R.LAUNCHES) == {"ssim_fwd": 1}
 
 
 def probe_inputs(device, n_tiles=4, chunks=6):

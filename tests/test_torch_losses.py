@@ -1,7 +1,9 @@
 """The losses this slice ports, and the side networks' optimizer, against
 the JAX package on the same numpy inputs: the opacity entropy, the normal
-curvature, the scale-and-shift-invariant depth loss and the semantic cross
-entropy, each value at rtol 1e-5 and its gradient at atol 1e-5 max|g|;
+curvature, the scale-and-shift-invariant depth loss, the semantic cross
+entropy and the SSIM's plain version (also against the float64 separable
+reference of its kernels), each value at rtol 1e-5 and its gradient at
+atol 1e-5 max|g|;
 labels outside the classes; the SSI loss on an empty mask (the port's
 gradient is finite and zero where the JAX one is NaN); Adam against
 optax.adam(eps=1e-15).
@@ -14,6 +16,7 @@ import optax
 import pytest
 import torch
 
+from chip_smoke import ssim_images, ssim_reference
 from vcr_gaus_tpu.train import losses as JL
 from vcr_gaus_tpu_torch.train import losses as L
 from vcr_gaus_tpu_torch.train.side_nets import Adam
@@ -139,6 +142,21 @@ def test_semantic_cross_entropy_matches_jax():
     full = L.semantic_cross_entropy(torch.tensor(logits), torch.tensor(inside),
                                     3)
     assert float(full) > out[0]
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 13), (1, 9, 5), (2, 17, 11),
+                                   (3, 24, 31), (1, 4, 40)])
+def test_ssim_matches_jax_and_separable_reference(shape):
+    """The plain (banded-matrix) SSIM on CPU tensors against the JAX
+    package's and against the float64 direct separable 11-tap blur with
+    the closed-form gradient of csrc/ssim.cu (``chip_smoke
+    .ssim_reference``), on odd shapes, some under the window: value and
+    gradient of img1."""
+    img1, img2 = ssim_images(shape, seed=sum(shape))
+    out = value_and_grad_both(JL.ssim, L.ssim, img1, img2)
+    assert_loss_close(*out)
+    want_v, want_g = ssim_reference(torch.tensor(img1), torch.tensor(img2))
+    assert_loss_close(out[0], float(want_v), out[2], want_g.numpy())
 
 
 def test_adam_matches_optax():

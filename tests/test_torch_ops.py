@@ -112,6 +112,26 @@ def test_camera_matrices_match_jax():
                                JG.intrinsic_matrix(0.9, 0.7, 30, 40))
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32, np.float64])
+def test_camera_image_uploads_contiguous(dtype):
+    """The scene readers hand the image over as an (H, W, 3) array
+    transposed to (3, H, W) (the Blender reader's float32 one, the COLMAP
+    reader's u8 one); its upload is a contiguous float32 tensor with the
+    image's values (u8 divided by 255), which the SSIM kernels take."""
+    rng = np.random.default_rng(5)
+    hwc = rng.integers(0, 256, (30, 40, 3)).astype(dtype)
+    if dtype != np.uint8:
+        hwc = hwc / 255.0
+    img = hwc.transpose(2, 0, 1).astype(dtype)
+    assert not img.flags["C_CONTIGUOUS"]
+    got = Camera(colmap_id=0, idx=0, image_name="c", R=np.eye(3),
+                 T=np.zeros(3), fovx=0.9, fovy=0.7, width=40, height=30,
+                 image=img).arrays("cpu").image
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    want = img / np.float32(255) if dtype == np.uint8 else img
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+
+
 # --- (c) projection ---------------------------------------------------------
 
 def _render_scene_inputs(seed=0):

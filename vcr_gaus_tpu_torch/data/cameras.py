@@ -114,10 +114,17 @@ class Camera:
 
         if img is None:
             image = torch.zeros((3, h, w), dtype=torch.float32, device=dev)
-        elif img.dtype == np.uint8:
-            image = torch.tensor(img, device=dev).to(torch.float32) / 255.0
         else:
-            image = f32(img)
+            # contiguous on the device, where the scene readers' arrays are
+            # (H, W, 3) ones transposed: the SSIM kernels take no strides.
+            # A u8 image is laid out anew by its conversion; a float32 one
+            # would be aliased by it, so ``contiguous`` copies it on the
+            # device
+            image = torch.tensor(np.asarray(img), device=dev).to(
+                torch.float32, memory_format=torch.contiguous_format
+            ).contiguous()
+            if img.dtype == np.uint8:
+                image = image / 255.0
         tanfov = np.array([math.tan(self.fovx / 2), math.tan(self.fovy / 2)],
                           np.float32)
         return CameraArrays(

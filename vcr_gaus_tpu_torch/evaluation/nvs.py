@@ -23,8 +23,8 @@ def psnr(img: np.ndarray, gt: np.ndarray) -> float:
 
 def ssim(img, gt, device: str | torch.device = "cuda") -> float:
     dev = resolve_device(device)
-    return float(_ssim(torch.as_tensor(np.asarray(img, np.float32)).to(dev),
-                       torch.as_tensor(np.asarray(gt, np.float32)).to(dev)))
+    return float(_ssim(*(torch.as_tensor(np.ascontiguousarray(a, np.float32)
+                                         ).to(dev) for a in (img, gt))))
 
 
 def _to_u8(x: np.ndarray) -> np.ndarray:

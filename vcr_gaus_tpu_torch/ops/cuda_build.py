@@ -30,7 +30,8 @@ SOURCES = {"rasterize_fwd": "rasterize_fwd.cu",
            "rasterize_stats": "rasterize_stats.cu",
            "kernel_microprobe": "kernel_microprobe.cu",
            "preprocess": "preprocess.cu",
-           "adam": "adam.cu"}
+           "adam": "adam.cu",
+           "ssim": "ssim.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",

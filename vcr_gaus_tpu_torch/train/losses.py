@@ -2,15 +2,20 @@
 ``configs/`` (L1, SSIM, the normal losses, the opacity entropy, the
 scale-and-shift-invariant depth loss, the normal curvature, the edge-aware
 distortion, the semantic cross entropy) and the depth moments. Images are
-(C, H, W) float32."""
+(C, H, W) float32. On CUDA tensors the SSIM and its gradient are the
+hand-written kernels ``csrc/ssim.cu``; CPU tensors take the plain version,
+the JAX package's banded matrix products."""
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import numpy as np
 import torch
+
+from ..ops import cuda_build
 
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -172,16 +177,25 @@ def edge_aware_distortion_map(gt_image, distortion_map):
     return distortion_map * w
 
 
+SSIM_WINDOW = 11
+SSIM_SIGMA = 1.5
+
+
+def ssim_window() -> np.ndarray:
+    """The normalised 1-D gaussian window, float32 (the band matrices'
+    taps, the kernels' too)."""
+    x = np.arange(SSIM_WINDOW) - SSIM_WINDOW // 2
+    g = np.exp(-(x ** 2) / (2 * SSIM_SIGMA ** 2))
+    return (g / g.sum()).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=8)
-def _band_matrix(n: int, window_size: int, sigma: float,
-                 device: torch.device) -> torch.Tensor:
+def _band_matrix(n: int, device: torch.device) -> torch.Tensor:
     """(n, n) symmetric banded blur matrix equal to a same-(zero-)padded 1-D
     gaussian convolution along an axis of length n, kept on ``device`` so
     that a training step uploads nothing."""
-    x = np.arange(window_size) - window_size // 2
-    g = np.exp(-(x ** 2) / (2 * sigma ** 2))
-    g = (g / g.sum()).astype(np.float32)
-    pad = window_size // 2
+    g = ssim_window()
+    pad = SSIM_WINDOW // 2
     B = np.zeros((n, n), np.float32)
     for k in range(-pad, pad + 1):
         idx = np.arange(max(0, -k), min(n, n - k))
@@ -189,15 +203,14 @@ def _band_matrix(n: int, window_size: int, sigma: float,
     return torch.from_numpy(B).to(device)
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor,
-         window_size: int = 11) -> torch.Tensor:
-    """Mean SSIM with an 11x11 sigma-1.5 gaussian window and same-padding,
-    per channel. The separable window is applied as two float32 matrix
-    products against banded matrices, as in the JAX package; float32
-    matrix products stay full precision on the card (no TF32) by default."""
+def ssim_torch(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """``ssim``'s plain version: the separable window applied as two
+    float32 matrix products against banded matrices, as in the JAX
+    package; float32 matrix products stay full precision on the card (no
+    TF32) by default."""
     h, w = img1.shape[-2:]
-    By = _band_matrix(h, window_size, 1.5, img1.device)
-    Bx = _band_matrix(w, window_size, 1.5, img1.device)
+    By = _band_matrix(h, img1.device)
+    Bx = _band_matrix(w, img1.device)
 
     def blur(x):
         return By.T @ x @ Bx
@@ -211,6 +224,120 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     ssim_map = ((2 * mu1_mu2 + C1) * (2 * sigma12 + C2)) / (
         (mu1_sq + mu2_sq + C1) * (sigma1_sq + sigma2_sq + C2))
     return ssim_map.mean()
+
+
+def _check_ssim(img1: torch.Tensor, img2: torch.Tensor) -> None:
+    """What the SSIM kernels take: two contiguous float32 (C, H, W) images
+    of one shape on one CUDA device, no gradient for ``img2``."""
+    for name, x in (("img1", img1), ("img2", img2)):
+        if x.device != img1.device or x.device.type != "cuda":
+            raise ValueError(f"{name} is on {x.device}, img1 on "
+                             f"{img1.device}: both must be on one CUDA "
+                             "device")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous float32 tensor, "
+                             f"got {x.dtype} (contiguous="
+                             f"{x.is_contiguous()})")
+    if img1.ndim != 3 or img1.shape != img2.shape or not img1.numel():
+        raise ValueError(f"expected two non-empty (C, H, W) images of one "
+                         f"shape, got {tuple(img1.shape)} and "
+                         f"{tuple(img2.shape)}")
+    if img2.requires_grad:
+        raise ValueError("the SSIM kernels give no gradient for img2 (the "
+                         "ground truth)")
+
+
+def ssim_forward(img1: torch.Tensor, img2: torch.Tensor,
+                 maps: bool) -> tuple:
+    """The forward kernel: (the mean SSIM, a 0-dim tensor, and the
+    backward's three (C, H, W) maps, or None without ``maps``)."""
+    c, h, w = img1.shape
+    dev = img1.device
+    lib = _ssim_lib()
+    partial = torch.empty(lib.vcr_ssim_blocks(c, h, w), dtype=torch.float32,
+                          device=dev)
+    value = torch.empty((), dtype=torch.float32, device=dev)
+    out = [torch.empty_like(img1) for _ in range(3)] if maps else None
+    with torch.cuda.device(dev):
+        err = lib.vcr_ssim_fwd(
+            img1.data_ptr(), img2.data_ptr(), c, h, w, _ssim_taps(),
+            partial.data_ptr(), value.data_ptr(),
+            *([m.data_ptr() for m in out] if maps else [0] * 3),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssim_fwd launch failed: cudaError {err}")
+    cuda_build.LAUNCHES["ssim_fwd"] += 1
+    return value, out
+
+
+def ssim_backward(g: torch.Tensor, img1: torch.Tensor, img2: torch.Tensor,
+                  dm: torch.Tensor, ds1: torch.Tensor,
+                  ds12: torch.Tensor) -> torch.Tensor:
+    """The backward kernel: dL/dimg1 from the upstream gradient ``g`` (one
+    float32 on the images' device, read there) and the forward's maps."""
+    c, h, w = img1.shape
+    if g.numel() != 1 or g.dtype != torch.float32 or g.device != img1.device:
+        raise ValueError(f"g must be one float32 on {img1.device}")
+    g = g.contiguous()
+    grad = torch.empty_like(img1)
+    dev = img1.device
+    with torch.cuda.device(dev):
+        err = _ssim_lib().vcr_ssim_bwd(
+            g.data_ptr(), dm.data_ptr(), ds1.data_ptr(), ds12.data_ptr(),
+            img1.data_ptr(), img2.data_ptr(), c, h, w, _ssim_taps(),
+            grad.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssim_bwd launch failed: cudaError {err}")
+    cuda_build.LAUNCHES["ssim_bwd"] += 1
+    return grad
+
+
+@functools.cache
+def _ssim_taps():
+    return (ctypes.c_float * SSIM_WINDOW)(*ssim_window().tolist())
+
+
+@functools.cache
+def _ssim_lib() -> ctypes.CDLL:
+    lib = cuda_build.load("ssim")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vcr_ssim_blocks.argtypes = [i] * 3
+    lib.vcr_ssim_blocks.restype = ctypes.c_longlong
+    lib.vcr_ssim_fwd.argtypes = [p, p, i, i, i] + [p] * 6 + [p]
+    lib.vcr_ssim_fwd.restype = ctypes.c_int
+    lib.vcr_ssim_bwd.argtypes = [p] * 6 + [i] * 3 + [p, p, p]
+    lib.vcr_ssim_bwd.restype = ctypes.c_int
+    return lib
+
+
+class _SSIM(torch.autograd.Function):
+    """Forward = the forward kernel, which also writes the backward's three
+    maps where ``maps``; backward = the backward kernel over them."""
+
+    @staticmethod
+    def forward(ctx, img1, img2, maps):
+        value, out = ssim_forward(img1, img2, maps)
+        if maps:
+            ctx.save_for_backward(img1, img2, *out)
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        return ssim_backward(g, *ctx.saved_tensors), None, None
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Mean SSIM with an 11x11 sigma-1.5 gaussian window and same-(zero-)
+    padding, per channel, of two (C, H, W) float32 images, differentiable
+    in ``img1``. On CUDA tensors the hand-written kernels
+    ``csrc/ssim.cu`` (``vcr_ssim_fwd``, ``vcr_ssim_bwd``) compute it, or
+    it raises (``_check_ssim``); only CPU tensors take the plain version
+    ``ssim_torch``."""
+    if img1.device.type == "cpu" and img2.device.type == "cpu":
+        return ssim_torch(img1, img2)
+    _check_ssim(img1, img2)
+    return _SSIM.apply(img1, img2,
+                       img1.requires_grad and torch.is_grad_enabled())
 
 
 def distortion_from_moments(w_sum, wd_sum, wd2_sum):

@@ -102,7 +102,10 @@ def compute_losses(out: dict, cam: CameraArrays, state: GM.GaussianState,
                                  gt[:, top:top + h, left:left + w])
     else:
         losses["l1"] = L.l1_loss(out["render"], gt)
-    losses["ssim"] = 1.0 - L.ssim(out["render"], gt)
+    # the SSIM kernels take no strides: a caller's crop of the view is laid
+    # out anew here (a no-op on the step's own contiguous images)
+    losses["ssim"] = 1.0 - L.ssim(out["render"].contiguous(),
+                                  gt.contiguous())
     act = state.active
     if weights.get("l1_scale", 0) > 0:
         # amin splits the gradient among tied axes, as jnp.min does
