@@ -102,6 +102,26 @@ def test_a_step_under_the_profiler(cpu_trainer, tmp_path):
                       "render.binned": [binned]}
 
 
+def test_the_curvature_span_is_inside_the_losses(scene_dir, cpu_trainer,
+                                                 tmp_path):
+    """With the curvature weighted and its gate open (the ScanNet++
+    recipe's), a step holds ``train.losses.curv`` inside ``train.losses``;
+    a step with the term off has no such span."""
+    from test_torch_debug_hooks import config
+
+    off, _, _ = profiled_step(cpu_trainer, "cpu", tmp_path)
+    assert spans_of(off, "train.losses") and not spans_of(
+        off, "train.losses.curv")
+    trainer = T.Trainer(config(scene_dir, tmp_path, **{
+        "optim.loss_weight.depth_normal": 0.01,
+        "optim.loss_weight.curv": 0.05,
+        "optim.curv_from_iter": 0}), device="cpu")
+    trace, _, _ = profiled_step(trainer, "cpu", tmp_path)
+    (losses,) = spans_of(trace, "train.losses")
+    (curv,) = spans_of(trace, "train.losses.curv")
+    assert losses[0] <= curv[0] and curv[1] <= losses[1]
+
+
 def test_records_are_bounded_and_closed():
     first = tracing.steps(tracing.MAX_STEPS)
     with profile(activities=[ProfilerActivity.CPU]):

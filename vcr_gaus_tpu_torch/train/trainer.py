@@ -130,9 +130,10 @@ def compute_losses(out: dict, cam: CameraArrays, state: GM.GaussianState,
         losses["depth_normal"] = L.masked_monosdf_normal_loss(
             out["est_normal"], gt_normal, out["mask"], w_conf)
         if weights.get("curv", 0) > 0 and gates.curv:
-            curv = L.normal2curv(out["est_normal"],
-                                 out["mask"][..., None].to(torch.float32))
-            losses["curv"] = torch.abs(curv).mean()
+            with tracing.span("train.losses.curv"):
+                mask = out["mask"][..., None].to(torch.float32)
+                curv = L.normal2curv(out["est_normal"], mask)
+                losses["curv"] = torch.abs(curv).mean()
     if weights.get("consistent_normal", 0) > 0 and gates.consistent_normal:
         losses["consistent_normal"] = L.monosdf_normal_loss(
             out["est_normal"], out["normal"])
