@@ -95,7 +95,9 @@ def test_a_step_under_the_profiler(cpu_trainer, tmp_path):
     (binned,) = record["render.binned"]
     assert 0 < binned <= min(int(cpu_trainer.state.active.sum()),
                              aux["num_entries"])
+    # a fresh trainer's first step uploads its view itself (a miss)
     assert record == {"iteration": it,
+                      "train.upload.prefetched": [0],
                       "render.preprocess.slots": [
                           cpu_trainer.state.capacity],
                       "render.entries": [aux["num_entries"]],

@@ -50,7 +50,7 @@ import torch
 
 from ..compat.arguments import write_cfg_args
 from ..data.box_cameras import sample_box_cameras
-from ..data.cameras import CameraArrays
+from ..data.cameras import CameraArrays, upload
 from ..data.scene import camera_to_json, load_scene_info
 from ..models import appearance as APP
 from ..models import gaussians as GM
@@ -302,6 +302,19 @@ class Trainer:
             depth_folder=cfg.model.depth_folder,
             resolution=cfg.model.resolution,
             data_device=str(getattr(cfg.model, "data_device", "host")))
+        # the train views' upload (``_views``): prefetched one step ahead,
+        # where every train view's pixels are resident (not ``lazy``: a
+        # decode is host work that a copy stream cannot hide); on a CUDA
+        # device from page-locked memory, on a copy stream of its own
+        self._prefetch_views = all(c.loaders is None
+                                   for c in self.scene.train_cameras)
+        self._copy_stream = None
+        if self.device.type == "cuda" and self._prefetch_views:
+            self.scene = dataclasses.replace(self.scene, train_cameras=[
+                c.pin_memory() for c in self.scene.train_cameras])
+            self._copy_stream = torch.cuda.Stream(self.device)
+        # (indices, their CameraArrays, the copy stream's event or None)
+        self._prefetched: tuple | None = None
         info = self.scene
         self.extent = info.radius
         self.trans = np.asarray(info.trans, np.float32)
@@ -480,28 +493,83 @@ class Trainer:
 
     def train_step(self):
         """One iteration: this rank's share of the step's camera batch
-        (all of it on one process), then the host actions. Under a profiler
-        the ``train.step`` span holds it all and ``train.upload`` the views'
-        and the background's copies to the device."""
+        (all of it on one process), then the host actions, then the upload
+        of the next step's views (``_prefetch``). Under a profiler the
+        ``train.step`` span holds it all and ``train.upload`` the views' and
+        the background's copies to the device, at the step's start and at
+        its end."""
         with tracing.step(self.iteration + 1, self.device):
             self._maybe_enable_debug()
             self.iteration += 1
-            idxs = self._pick_camera_batch()
-            share = len(idxs) // self.world_size
-            mine = idxs[self.rank * share:(self.rank + 1) * share]
+            mine = self._mine(self._pick_camera_batch())
             with tracing.span("train.upload"):
-                cams = [self.scene.train_cameras[i].arrays(self.device)
-                        for i in mine]
+                cams = self._views(mine)
                 bg = (np.random.default_rng(self.iteration).random(3).astype(
                     np.float32) if self.cfg.optim.random_background
                     else self.bg)
-                bg = torch.as_tensor(bg, device=self.device)
+                bg = upload(bg, self.device, self._step_stream())
             self.state, losses, aux = self.step_fn(
                 self.state, cams, bg, self._lr_xyz(), self._sh_degree(),
                 self._gates(), self.nets)
             self._post_step_actions()
+            with tracing.span("train.upload"):
+                self._prefetch(self._mine(self._next_idxs))
             self._debug_check(losses)
         return losses, aux
+
+    def _mine(self, idxs: list[int]) -> list[int]:
+        """This rank's share of a camera batch."""
+        share = len(idxs) // self.world_size
+        return idxs[self.rank * share:(self.rank + 1) * share]
+
+    def _step_stream(self):
+        """The step's CUDA stream, or None off a CUDA device."""
+        return (torch.cuda.current_stream(self.device)
+                if self.device.type == "cuda" else None)
+
+    def _views(self, mine: list[int]) -> list[CameraArrays]:
+        """The step's views: those the previous step uploaded where it
+        uploaded these very cameras (a hit: the step's stream waits for the
+        copy's event and takes the tensors over from the copy stream), else
+        uploaded now (a miss): on the step's stream without blocking where
+        the views are page-locked, else with blocking copies. The counter
+        ``train.upload.prefetched`` takes 1 a view on a hit, 0 on a miss."""
+        pre, self._prefetched = self._prefetched, None
+        hit = pre is not None and pre[0] == mine
+        if hit:
+            _, cams, event = pre
+            if event is not None:
+                stream = self._step_stream()
+                stream.wait_event(event)
+                for cam in cams:
+                    for t in cam:
+                        t.record_stream(stream)
+        else:
+            stream = (self._step_stream() if self._copy_stream is not None
+                      else None)
+            cams = [self.scene.train_cameras[i].arrays(self.device,
+                                                       stream=stream)
+                    for i in mine]
+        for _ in mine:
+            tracing.count("train.upload.prefetched", int(hit))
+        return cams
+
+    def _prefetch(self, mine: list[int]) -> None:
+        """Upload the next step's views ``mine`` now, where the train views
+        are resident: on a CUDA device on the copy stream, from page-locked
+        memory and without blocking, its event recorded after the copies.
+        The tensors are allocated on the copy stream; ``_views`` records the
+        step's stream on them, so that the allocator gives their memory to
+        a later copy only once the step that reads them is done."""
+        if not self._prefetch_views:
+            return
+        cams = [self.scene.train_cameras[i].arrays(
+            self.device, stream=self._copy_stream) for i in mine]
+        event = None
+        if self._copy_stream is not None:
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        self._prefetched = (mine, cams, event)
 
     def train(self, max_iters: int | None = None, log_every: int = 50):
         """Run iterations up to ``max_iters`` (default: the recipe's) with
