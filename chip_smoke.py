@@ -41,7 +41,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              1600x1063 and 1600x900; there the value and gradient twice,
              bit for bit, and the kernels' times beside their byte bounds,
              the plain version's and the depthwise conv2d SSIM's, and the
-             pair's host and device time through autograd;
+             pair's host and device time through autograd; then
+             (phase binning) binning's kernels (csrc/binning.cu) against
+             the plain int64 chain on the same card tensors, every field
+             of the Binning exactly and one launch a view, at small
+             shapes and at two training views of each benchmark cell
+             (its trainer built by the cell's driver), with the kernels'
+             and the chain's ms a view, the kernels' device ms, the
+             byte bound of what binning needs and the bytes of the
+             design's passes;
   3. slice   the render path at full width: a synthetic COLMAP scene of 8
              1600x1200 views and a 1M-Gaussian SH-degree-3 PLY, rendered and
              scored by vcr_gaus_tpu_torch.render_eval.main with
@@ -1175,6 +1183,168 @@ def phase_ssim(device, small=((1, 37, 53), (3, 45, 29), (3, 7, 13),
         emit(phase="ssim", **row)
         timings.append(row)
         del x, y, xg, maps, first, again
+        torch.cuda.empty_cache()
+    return dict(worst=worst, timings=timings)
+
+
+# binning's kernels (csrc/binning.cu) at the benchmark cells' views
+BINNING_CELLS = ("dtu.step_late", "tnt.step_late", "m360.step_late",
+                 "scannetpp.step_late")
+
+
+def binning_bytes(slots: int, entries: int, tiles: int) -> int:
+    """The least bytes binning moves: it reads 24 B a slot (mean2d 8,
+    radius 4, depth 4, extents 8) and writes 4 B an entry (the sorted gid)
+    and 8 B a tile (its start and count). Not counted: what a radix sort's
+    passes move beyond that (``binning_design_bytes``)."""
+    return 24 * slots + 4 * entries + 8 * tiles
+
+
+def binning_design_bytes(slots: int, entries: int) -> int:
+    """The bytes binning's passes move (csrc/binning.cu's note): about 80 B
+    an entry (the expansion's keys and gids, the sort's four passes and
+    histogram) and 60 B a slot (the count, its scan, the expansion's
+    reads)."""
+    return 80 * entries + 60 * slots
+
+
+def binning_err(got, want) -> float:
+    """The largest absolute difference between two Binnings: over
+    sorted_gid, tile_starts and tile_counts, and the entry and binned
+    counts; inf where a field's shape or dtype differs."""
+    import torch
+    err = float(max(abs(got.num_entries - want.num_entries),
+                    abs(got.num_binned - want.num_binned)))
+    for f in ("sorted_gid", "tile_starts", "tile_counts"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return math.inf
+        if a.numel():
+            err = max(err, float((a.to(torch.int64) - b.to(torch.int64))
+                                 .abs().max()))
+    return err
+
+
+def compare_binning(mean2d, radius, depth_z, width, height, extents=None):
+    """The kernels' Binning against the plain chain's on the same card
+    tensors, every field exactly, and one launch; returns the kernels'
+    Binning and the largest difference (``binning_err``)."""
+    from vcr_gaus_tpu_torch.ops import binning as B
+    from vcr_gaus_tpu_torch.ops import cuda_build
+
+    before = cuda_build.LAUNCHES["binning"]
+    got = B.bin_gaussians(mean2d, radius, depth_z, width, height,
+                          extents=extents)
+    if cuda_build.LAUNCHES["binning"] - before != 1:
+        raise AssertionError("binning: not one launch a view")
+    want = B.bin_gaussians_torch(mean2d, radius, depth_z, width, height,
+                                 extents=extents)
+    err = binning_err(got, want)
+    if err != 0:
+        raise AssertionError(f"binning at {width}x{height}: the kernels' "
+                             f"Binning differs from the plain chain's by "
+                             f"{err}")
+    return got, err
+
+
+def capture_binning(trainer, steps: int) -> list[tuple]:
+    """Binning's inputs (mean2d, radius, depth_z, width, height, extents),
+    copied, of each view of ``steps`` calls of ``trainer.train_step``."""
+    from vcr_gaus_tpu_torch.ops import binning as B
+
+    seen, orig = [], B.bin_gaussians
+
+    def capture(mean2d, radius, depth_z, width, height, extents=None):
+        seen.append((mean2d.detach().clone(), radius.detach().clone(),
+                     depth_z.detach().clone(), width, height,
+                     None if extents is None else extents.detach().clone()))
+        return orig(mean2d, radius, depth_z, width, height, extents=extents)
+
+    B.bin_gaussians = capture
+    try:
+        for _ in range(steps):
+            trainer.train_step()
+    finally:
+        B.bin_gaussians = orig
+    return seen
+
+
+def phase_binning(device, cells=BINNING_CELLS, steps=2, seed=1,
+                  iters=10) -> dict:
+    """Binning's kernels (``csrc/binning.cu``) against the plain chain
+    (``compare_binning``) at small shapes (with and without extents, every
+    Gaussian culled), then at the views of the benchmark's cells: each
+    cell's trainer built by its driver from ``seed`` at its start
+    iteration, binning's inputs of ``steps`` training steps captured, each
+    view compared, then timed: the kernels' and the plain chain's ms a
+    view (CUDA events, the host's wait included), the kernels' device ms
+    a view and their largest kernels (``profile_render``), beside the byte
+    bound of what the function needs (``binning_bytes``) and the bytes of
+    the design's passes (``binning_design_bytes``). Returns the rows and
+    ``worst``, the largest difference of any comparison."""
+    import gc
+
+    import torch
+
+    from gsbench import build as BLD
+    from gsbench import harness as H
+    from vcr_gaus_tpu_torch.ops import binning as B
+
+    worst = 0.0
+    for n, w, h, culled in ((60, 40, 24, False), (400, 72, 40, False),
+                            (400, 72, 40, True)):
+        feats, radius, _ = splat_scene(n=n, seed=n, width=w, height=h)
+        f = torch.tensor(feats, device=device)
+        r = torch.tensor(radius * (0 if culled else 1), device=device)
+        ext = torch.rand((n, 2), generator=torch.Generator().manual_seed(n))
+        for e in (None, (ext * r[:, None].cpu()).to(device)):
+            got, err = compare_binning(f[:, :2], r, f[:, 6], w, h,
+                                       extents=e)
+            worst = max(worst, err)
+            emit(phase="binning", shape=[w, h], slots=n,
+                 entries=got.num_entries, extents=e is not None,
+                 max_abs_err=err)
+    timings = []
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    for workload in cells:
+        c = H.cell(workload)
+        drv = H.load_driver(c.traffic["kind"])
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(REPO, "build")) as tmp:
+            scene = getattr(drv, "make_scene", BLD.make_scene)(
+                c.cfg, seed, os.path.join(tmp, "scene"), device)
+            trainer = getattr(drv, "build_trainer", BLD.build_trainer)(
+                c.cfg, scene, seed, device)
+            trainer.iteration = int(c.traffic["start_iteration"]) - 1
+            views = capture_binning(trainer, steps)
+            del trainer, scene
+            gc.collect()
+        for k, (m, r, d, w, h, e) in enumerate(views):
+            got, err = compare_binning(m, r, d, w, h, e)
+            worst = max(worst, err)
+            n, entries = m.shape[0], got.num_entries
+            del got
+            tiles = math.prod(B.tile_grid(w, h))
+            b = binning_bytes(n, entries, tiles)
+            prof = profile_render(
+                lambda _: B.bin_gaussians(m, r, d, w, h, extents=e),
+                [None] * 5, top=6)
+            row = dict(
+                cell=workload, view=k, shape=[w, h], slots=n,
+                entries=entries, extents=e is not None,
+                ms=cuda_ms(lambda: B.bin_gaussians(m, r, d, w, h,
+                                                   extents=e), iters=iters),
+                device_ms=prof["device_ms_per_view"],
+                top_kernels=prof["top_kernels"],
+                plain_ms=cuda_ms(lambda: B.bin_gaussians_torch(
+                    m, r, d, w, h, extents=e), iters=iters),
+                max_abs_err=err, bytes=b, bound_ms=1e3 * b / PEAK_BYTES,
+                design_bytes=binning_design_bytes(n, entries))
+            row["x_bound"] = row["ms"] / row["bound_ms"]
+            row["device_x_bound"] = row["device_ms"] / row["bound_ms"]
+            emit(phase="binning", **row)
+            timings.append(row)
+        del views
         torch.cuda.empty_cache()
     return dict(worst=worst, timings=timings)
 
@@ -2417,14 +2587,15 @@ def schedule_launches(trainer, first: int, last: int,
 
 def with_implied(want: dict[str, int]) -> dict[str, int]:
     """``want``, the compositing kernels' launches of a run through the
-    renderer, with the preprocess and SSIM kernels' it implies: a
-    preprocess forward for each view rendered or swept for stats; a
-    preprocess backward and an SSIM forward and backward for each view
-    differentiated (the training step's loss)."""
+    renderer, with the preprocess, binning and SSIM kernels' it implies: a
+    preprocess forward and a binning for each view rendered or swept for
+    stats; a preprocess backward and an SSIM forward and backward for each
+    view differentiated (the training step's loss)."""
     out = dict(want)
     fwd = want.get("rasterize_fwd", 0) + want.get("rasterize_stats", 0)
     if fwd:
         out["preprocess_fwd"] = fwd
+        out["binning"] = fwd
     if want.get("rasterize_bwd", 0):
         for k in ("preprocess_bwd", "ssim_fwd", "ssim_bwd"):
             out[k] = want["rasterize_bwd"]
@@ -4439,6 +4610,7 @@ def main() -> int:
     worst, worst_bwd, worst_stats, pre = phase_kernel(device)
     ad = phase_adam(device)
     ss = phase_ssim(device)
+    bn = phase_binning(device)
     sl = phase_slice(device)
     if sl["launches"] != 8:
         raise AssertionError(f"rasterize_fwd launched {sl['launches']} times "
@@ -4546,7 +4718,21 @@ def main() -> int:
         "bound_ms": [t[f"{d}_bound_ms"] for t in ss["timings"]],
         "bound_by": "bytes",
         "library_ms": [t["library_ms"] for t in ss["timings"]]}
-        for d in ("fwd", "bwd")])
+        for d in ("fwd", "bwd")] + [{
+        "name": "binning", "route": "cuda",
+        "source": "vcr_gaus_tpu_torch/csrc/binning.cu",
+        "replaces": "none: the eager int64 binning chain",
+        "launches": tr["launches"].get("binning", 0),
+        "launches_train_tnt": tnt_launches.get("binning", 0),
+        "max_abs_err": bn["worst"],
+        "cells": [t["cell"] for t in bn["timings"]],
+        "entries": [t["entries"] for t in bn["timings"]],
+        "ms": [t["ms"] for t in bn["timings"]],
+        "device_ms": [t["device_ms"] for t in bn["timings"]],
+        "plain_ms": [t["plain_ms"] for t in bn["timings"]],
+        "bound_ms": [t["bound_ms"] for t in bn["timings"]],
+        "design_bytes": [t["design_bytes"] for t in bn["timings"]],
+        "bound_by": "bytes", "library_ms": None}])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -105,7 +105,8 @@ def test_rasterize_bwd_through_autograd(cuda):
                                f.detach()[:, 6], torch.tensor(cam, device=cuda),
                                40, 24, 0, "intersection")
     img.square().sum().backward()
-    assert dict(R.LAUNCHES) == {"rasterize_fwd": 1, "rasterize_bwd": 1}
+    assert dict(R.LAUNCHES) == {"binning": 1, "rasterize_fwd": 1,
+                                "rasterize_bwd": 1}
     assert bool(torch.isfinite(f.grad).all()) and float(dummy.grad.sum()) > 0
 
 
@@ -183,7 +184,8 @@ def test_render_stats_launches_the_kernel(cuda):
     R.reset_launch_counts()
     count, imp = render_stats(state, cam.arrays(cuda, pixels=False),
                               RenderConfig(width=64, height=48))
-    assert dict(R.LAUNCHES) == {"preprocess_fwd": 1, "rasterize_stats": 1}
+    assert dict(R.LAUNCHES) == {"preprocess_fwd": 1, "binning": 1,
+                                "rasterize_stats": 1}
     assert float(count[:200].sum()) > 0 and float(imp[200:].abs().sum()) == 0
 
 
@@ -230,7 +232,8 @@ def test_preprocess_launches_once_a_view(cuda):
     grads = torch.autograd.grad(out["render"].sum() + out["depth"].sum(),
                                 params)
     assert dict(R.LAUNCHES) == {"preprocess_fwd": 1, "preprocess_bwd": 1,
-                                "rasterize_fwd": 1, "rasterize_bwd": 1}
+                                "binning": 1, "rasterize_fwd": 1,
+                                "rasterize_bwd": 1}
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     assert float(grads[0][:300].abs().sum()) > 0
 
@@ -679,7 +682,8 @@ def test_render_flythrough_launches_the_kernel_per_frame(cuda, tmp_path):
     R.reset_launch_counts()
     out = render_flythrough(state, cams, RenderConfig(width=64, height=48),
                             str(tmp_path / "fly.mp4"), n_frames=5)
-    assert dict(R.LAUNCHES) == {"preprocess_fwd": 5, "rasterize_fwd": 5}
+    assert dict(R.LAUNCHES) == {"preprocess_fwd": 5, "binning": 5,
+                                "rasterize_fwd": 5}
     assert os.path.exists(out)
 
 

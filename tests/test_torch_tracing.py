@@ -101,7 +101,8 @@ def test_a_step_under_the_profiler(cpu_trainer, tmp_path):
                       "render.preprocess.slots": [
                           cpu_trainer.state.capacity],
                       "render.entries": [aux["num_entries"]],
-                      "render.binned": [binned]}
+                      "render.binned": [binned],
+                      "render.binning.kernel": [0]}
 
 
 def test_the_curvature_span_is_inside_the_losses(scene_dir, cpu_trainer,
@@ -156,6 +157,8 @@ def test_the_card_step_counts_allocator_calls(tmp_path):
     assert record["render.entries"] == [aux["num_entries"]]
     (binned,) = record["render.binned"]
     assert 0 < binned <= aux["num_entries"]
+    # the card's view is binned by the kernels
+    assert record["render.binning.kernel"] == [1]
     (calls,) = record["cuda.alloc_calls"]
     assert isinstance(calls, int) and calls >= 0
     # the update kernel's counter, on the card's path alone

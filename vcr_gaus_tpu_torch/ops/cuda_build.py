@@ -31,7 +31,8 @@ SOURCES = {"rasterize_fwd": "rasterize_fwd.cu",
            "kernel_microprobe": "kernel_microprobe.cu",
            "preprocess": "preprocess.cu",
            "adam": "adam.cu",
-           "ssim": "ssim.cu"}
+           "ssim": "ssim.cu",
+           "binning": "binning.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
